@@ -105,8 +105,8 @@ def lib() -> ctypes.CDLL:
         so.deps_join_launch.restype = i32
         so.max_conflict_launch.argtypes = [vp] * 6 + [i32] * 3 + [vp] * 3
         so.max_conflict_launch.restype = i32
-        so.consult_tile_slots.argtypes = []
-        so.consult_tile_slots.restype = i32
+        so.max_conflict_scratch_ints.argtypes = [i32, i32]
+        so.max_conflict_scratch_ints.restype = ctypes.c_longlong
         _LIB = so
     return _LIB
 
@@ -301,16 +301,20 @@ def max_conflict(inc_T, ts, txn_id, active, offsets, cols) -> torch.Tensor:
     b, t, k = _check_common(inc_T, txn_id, active, offsets, cols)
     dev = inc_T.device
     _check("ts", ts, torch.int32, (t, TS_LANES), dev)
-    out = torch.zeros((b, TS_LANES), dtype=torch.int32, device=dev)
+    out = torch.empty((b, TS_LANES), dtype=torch.int32, device=dev)
     if b == 0 or t == 0:
-        return out
+        return out.zero_()
     so = lib()
-    tile = so.consult_tile_slots()
-    partial = torch.empty((b, (t + tile - 1) // tile, TS_LANES),
-                          dtype=torch.int32, device=dev)
+    # the kernel writes every row of out; scratch (the cross-tile fold's
+    # counters and partials) only when T spans several tiles
+    n = so.max_conflict_scratch_ints(b, t)
+    if n < 0:
+        raise RuntimeError(f"max_conflict launch failed: CUDA error {-n}")
+    scratch = torch.empty((n,), dtype=torch.int32, device=dev) if n else None
     rc = so.max_conflict_launch(
         _ptr(inc_T), _ptr(ts), _ptr(txn_id), _ptr(active), _ptr(offsets),
-        _ptr(cols), b, t, k, _ptr(partial), _ptr(out), _stream(dev))
+        _ptr(cols), b, t, k, None if scratch is None else _ptr(scratch),
+        _ptr(out), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"max_conflict launch failed: CUDA error {rc}")
     LAUNCHES["max_conflict"] += 1

@@ -11,7 +11,8 @@ Phases, one JSON line each; any failure exits non-zero:
 1. env      torch/CUDA versions, nvcc, the card's name and power limit;
 2. build    nvcc of csrc/consult.cu for sm_90a, with its time;
 3. kernels  K1 (deps_join) and K2 (max_conflict) at full size against
-            their plain torch versions, exactly; device time per launch
+            their plain torch versions, exactly (the eager answer and the
+            graph replays' answers); device time per launch
             from a CUDA graph of back-to-back launches between one event
             pair (cold and warm L2), the wrapper's host cost apart, beside
             the plain version, one torch.matmul of the same join and the
@@ -22,8 +23,10 @@ Phases, one JSON line each; any failure exits non-zero:
 5. burn     the main path: a seeded burn with the device tier forced
             through the service and frontier execution on; the launch
             counts are zeroed just before it and read just after; every
-            kernel answer is checked against the plain version, the trace
-            must equal the same burn on the host backend;
+            tenth kernel answer is checked against the plain version, the
+            trace must equal the same burn on the host backend.  The same
+            burn through the resolver's one-shot device path (no service)
+            must equal it too;
 6. replay   a recorded burn replayed at T~32,768 through the host and
             device tiers with sampled parity against the cfk walk.
 
@@ -108,18 +111,23 @@ def _graph(torch, body):
     return g
 
 
-def device_ms(torch, fn, reps: int, flush=None) -> float:
+def device_ms(torch, fn, reps: int, flush=None, check=None) -> float:
     """Device ms per call of ``fn``: ``reps`` back-to-back calls captured in
     one CUDA graph and replayed between one event pair, so no host work
     (argument checks, the ctypes call) sits in the window.  With ``flush``
     every call follows an L2 flush (the index read cold, as after other
-    work), and the flushes alone, captured the same way, are subtracted."""
+    work), and the flushes alone, captured the same way, are subtracted.
+    ``check(replay)``, when given, runs after the timed replay, while the
+    graph is alive."""
     def calls():
         for _ in range(reps):
             if flush is not None:
                 flush.zero_()
             fn()
-    total = _elapsed_ms(torch, _graph(torch, calls).replay)
+    graph = _graph(torch, calls)
+    total = _elapsed_ms(torch, graph.replay)
+    if check is not None:
+        check(graph.replay)
     if flush is not None:
         def flushes():
             for _ in range(reps):
@@ -369,7 +377,11 @@ def phase_build(ctx):
             "ptxas": ptxas}
 
 
-def _kernel_case(ctx, label, t, k, b, keys_per_txn, iters, packed=(False, True)):
+def _kernel_case(ctx, label, t, k, b, keys_per_txn, iters, packed=(False, True),
+                 wide=0):
+    """K1 (unpacked, and bit-packed where ``packed`` says) and K2 on one
+    synthetic index and query batch; with ``wide`` the first query row takes
+    that many random columns, duplicates included."""
     import numpy as np
     torch = ctx["torch"]
     from cassandra_accord_tpu_torch.ops import _kernels as K
@@ -378,6 +390,8 @@ def _kernel_case(ctx, label, t, k, b, keys_per_txn, iters, packed=(False, True))
     key_inc, live, lanes, ts, kind, status, active = make_index(
         np, rng, t, k, keys_per_txn)
     rows, before, qkind = make_queries(np, rng, b, k, t, keys_per_txn)
+    if wide:
+        rows[0] = sorted(int(c) for c in rng.integers(0, k, wide))
     offsets, cols = to_csr(np, rows)
 
     def up(a):
@@ -401,9 +415,11 @@ def _kernel_case(ctx, label, t, k, b, keys_per_txn, iters, packed=(False, True))
 
 
 def measure(ctx, name, label, args, kwargs, iters, path="synthetic"):
-    """One kernel at one shape: exact check against the plain version, then
-    kernel (cold and warm L2), plain and library times, the wrapper's host
-    cost and the bound.  ``path`` says where the shape came from."""
+    """One kernel at one shape: exact check against the plain version (the
+    eager call's answer, and the last graph replay's of each timing, also
+    after its output was overwritten and the graph replayed once more),
+    then kernel (cold and warm L2), plain and library times, the wrapper's
+    host cost and the bound.  ``path`` says where the shape came from."""
     torch = ctx["torch"]
     from cassandra_accord_tpu_torch.ops import _kernels as K
     kern = ctx["real"][name]
@@ -411,15 +427,32 @@ def measure(ctx, name, label, args, kwargs, iters, path="synthetic"):
     got = kern(*args, **kwargs)
     want = plain(*args, **kwargs)
     sync(ctx)
-    err = max_abs_err(torch, got, want)
-    need(err == 0, f"{name} [{label}] differs from its plain version: "
-         f"max_abs_err {err}")
+    errs = [max_abs_err(torch, got, want)]
     flush = ctx["flush"]
+    last = [None]
 
     def call():
-        return kern(*args, **kwargs)
-    ms = device_ms(torch, call, iters, flush)
-    warm_ms = device_ms(torch, call, iters)
+        last[0] = kern(*args, **kwargs)
+
+    def check(replay):
+        sync(ctx)
+        errs.append(max_abs_err(torch, last[0], want))
+        last[0].copy_(torch.bitwise_not(want))
+        replay()
+        sync(ctx)
+        errs.append(max_abs_err(torch, last[0], want))
+    ms = device_ms(torch, call, iters, flush, check)
+    warm_ms = device_ms(torch, call, iters, None, check)
+    # the method's own floor at this rep count: a one-element add timed the
+    # same way (the graph launch's fixed cost is spread over ``iters``)
+    floor_ms = ctx["floors"].get(iters)
+    if floor_ms is None:
+        one = torch.zeros(1, device=ctx["dev"])
+        floor_ms = ctx["floors"][iters] = device_ms(
+            torch, lambda: one.add_(1), iters, flush)
+    err = max(errs)
+    need(err == 0, f"{name} [{label}] differs from its plain version: "
+         f"max_abs_err {errs} (eager, then cold and warm graph replays)")
     wrapper_us = host_us(torch, call, iters)
     plain_ms = eager_ms(torch, lambda: plain(*args, **kwargs),
                         max(3, iters // 4), flush)
@@ -437,6 +470,7 @@ def measure(ctx, name, label, args, kwargs, iters, path="synthetic"):
            "B": offsets.numel() - 1, "T": inc_T.shape[1], "K": inc_T.shape[0],
            "nnz": int(offsets[-1]), "packed": bool(kwargs.get("packed", False)),
            "max_abs_err": err, "ms": ms, "warm_ms": warm_ms,
+           "method_floor_ms": floor_ms,
            "wrapper_host_us": wrapper_us, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "bytes": nbytes, "ops": ops}
@@ -450,10 +484,19 @@ def phase_kernels(ctx):
     rows += _kernel_case(ctx, "config4_T65536_K2048_B64_1024keys", 65536,
                          2048, 64, 1024, 10)
     # the odd-T path (byte loads, no packing) at a small shape
-    rows += _kernel_case(ctx, "T1003_K64_B13_2keys", 1003, 64, 13, 2, 3,
+    rows += _kernel_case(ctx, "T1003_K64_B13_2keys", 1003, 64, 13, 2, 20,
                          packed=(False,))
+    # the burn's window shape (its largest calls are timed after the burn)
+    rows += _kernel_case(ctx, "burnlike_T256_K16_B8_2keys", 256, 16, 8, 2, 20)
+    # two tiles, the second with one slot (byte loads, cross-tile fold)
+    rows += _kernel_case(ctx, "T2049_K64_B13_2keys", 2049, 64, 13, 2, 20,
+                         packed=(False,))
+    # a row of 5,000 columns (duplicates), wider than a block's CSR stage
+    rows += _kernel_case(ctx, "wide_T65536_K512_B9_5000cols", 65536, 512, 9,
+                         2, 5, packed=(False,), wide=5000)
     return {"cases": [dict({k: r[k] for k in ("name", "shape", "max_abs_err",
                                               "ms", "warm_ms",
+                                              "method_floor_ms",
                                               "wrapper_host_us", "plain_ms",
                                               "library_ms", "bound_ms",
                                               "bound_by")},
@@ -546,45 +589,61 @@ def phase_burn(ctx):
     from cassandra_accord_tpu_torch.harness.trace import Trace, diff_traces
     from cassandra_accord_tpu_torch.ops import _kernels as K
     kw = dict(resolver_kind="tpu", tpu_tier="device", tpu_walk_max=0,
-              tpu_walk_width=0, tpu_service="on", device=ctx["dev"])
-    out = {}
-    traces, results = [], []
-    for backend in ("torch", "host"):
-        cfg = LocalConfig.from_env(tpu_service_backend=backend, **kw)
+              tpu_walk_width=0, device=ctx["dev"])
+    # the main path (the service on the card), the resolver's one-shot
+    # device path (no service: one K1 and one K2 launch per consult batch)
+    # and the host backend, which both must equal
+    runs = {"torch": dict(tpu_service="on", tpu_service_backend="torch"),
+            "oneshot": dict(tpu_service="off"),
+            "host": dict(tpu_service="on", tpu_service_backend="host")}
+    out, traces, results, checkers = {}, {}, {}, {}
+    for name, knobs in runs.items():
+        cfg = LocalConfig.from_env(**kw, **knobs)
         tr = Trace()
         t0 = time.perf_counter()
-        if backend == "torch":
+        if name == "host":
+            res = run_burn(tracer=tr.hook, node_config=cfg, **BURN_KW)
+        else:
             with KernelRecorder(torch, K, every=10) as chk:
-                K.reset_launches()                 # just before the main path
+                K.reset_launches()                 # just before the run
                 res = run_burn(tracer=tr.hook, node_config=cfg, **BURN_KW)
                 sync(ctx)
                 launches = dict(K.LAUNCHES)        # just after it
-            ctx["burn_launches"] = launches
-            ctx["burn_checker"] = chk
-        else:
-            res = run_burn(tracer=tr.hook, node_config=cfg, **BURN_KW)
+            checkers[name] = chk
+            need(all(v > 0 for v in launches.values()),
+                 f"{name} burn did not launch every kernel: {launches}")
+            need(res.stats.get("resolver_device_consults", 0) > 0,
+                 f"{name} burn made no device consult")
+            if name == "torch":
+                ctx["burn_launches"] = launches
+                ctx["burn_checker"] = chk
+            else:
+                out["oneshot_launches"] = launches
         wall = time.perf_counter() - t0
-        traces.append(tr)
-        results.append(res)
-        out[backend] = {"wall_s": wall, "ops_ok": res.ops_ok,
-                        "sim_micros": res.sim_micros,
-                        "resolver_device_consults":
-                            res.stats.get("resolver_device_consults", 0),
-                        "resolver_service_batches":
-                            res.stats.get("resolver_service_batches", 0)}
-    dev_res = results[0]
-    need(dev_res.stats.get("resolver_device_consults", 0) > 0,
-         "burn made no device consult")
-    need(all(v > 0 for v in ctx["burn_launches"].values()),
-         f"burn did not launch every kernel: {ctx['burn_launches']}")
-    div = diff_traces(*traces)
-    need(div is None, f"torch-backend trace differs from host backend:\n{div}")
-    outcome = [(r.ops_ok, r.ops_recovered, r.ops_nacked, r.ops_lost,
-                r.ops_failed, r.sim_micros) for r in results]
-    need(outcome[0] == outcome[1], f"outcomes differ: {outcome}")
+        traces[name] = tr
+        results[name] = res
+        out[name] = {"wall_s": wall, "ops_ok": res.ops_ok,
+                     "sim_micros": res.sim_micros,
+                     "resolver_device_consults":
+                         res.stats.get("resolver_device_consults", 0),
+                     "resolver_service_batches":
+                         res.stats.get("resolver_service_batches", 0)}
+
+    def outcome(r):
+        return (r.ops_ok, r.ops_recovered, r.ops_nacked, r.ops_lost,
+                r.ops_failed, r.sim_micros)
+    for name in ("torch", "oneshot"):
+        div = diff_traces(traces[name], traces["host"])
+        need(div is None, f"{name} trace differs from the host backend's:\n"
+             f"{div}")
+        need(outcome(results[name]) == outcome(results["host"]),
+             f"{name} outcomes differ from the host backend's: "
+             f"{outcome(results[name])} vs {outcome(results['host'])}")
     out.update(launches=ctx["burn_launches"],
                checked_calls=ctx["burn_checker"].verify(),
-               trace_equal_to_host=True, verifier="pass")
+               oneshot_checked_calls=checkers["oneshot"].verify(),
+               trace_equal_to_host=True, oneshot_trace_equal_to_host=True,
+               verifier="pass")
     return out
 
 
@@ -632,7 +691,7 @@ def phase_replay(ctx):
 
 
 ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "warm_ms", "wrapper_host_us", "shape", "path", "B",
+            "library_ms", "warm_ms", "method_floor_ms", "wrapper_host_us", "shape", "path", "B",
             "T", "K", "nnz", "packed")
 
 
@@ -691,7 +750,7 @@ def main(argv=None) -> int:
         return 3
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    ctx = {"torch": torch, "rows": [], "dev": "cuda",
+    ctx = {"torch": torch, "rows": [], "dev": "cuda", "floors": {},
            "real": {"deps_join": _kernels.deps_join,
                     "max_conflict": _kernels.max_conflict}}
     fns = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,

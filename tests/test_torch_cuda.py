@@ -22,7 +22,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(rng, t, k, b, device, width=3):
+def _inputs(rng, t, k, b, device, width=3, wide=0, oob=False):
+    """Random index and CSR query.  Rows take 0..``width`` keys; with
+    ``wide`` row 0 takes that many columns (duplicates included), and with
+    ``oob`` about a tenth of the columns fall outside [0, k)."""
     inc = (rng.random((k, t)) < 0.05).astype(np.uint8)
     lanes = rng.integers(0, 50, (t, 5)).astype(np.int32)
     ts = lanes + rng.integers(0, 3, (t, 5)).astype(np.int32)
@@ -30,8 +33,13 @@ def _inputs(rng, t, k, b, device, width=3):
     status = rng.integers(0, 7, t).astype(np.int8)
     active = rng.random(t) < 0.9
     lens = rng.integers(0, width + 1, b)
+    if wide:
+        lens[0] = wide
     offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
     cols = rng.integers(0, k, int(offsets[-1]) + 5).astype(np.int32)
+    if oob:
+        bad = rng.random(cols.size) < 0.1
+        cols[bad] = rng.choice([-7, -1, k, k + 100], int(bad.sum()))
     before = rng.integers(0, 50, (b, 5)).astype(np.int32)
     qkind = rng.integers(0, 6, b).astype(np.int8)
 
@@ -42,25 +50,81 @@ def _inputs(rng, t, k, b, device, width=3):
                 cols=up(cols), before=up(before), qkind=up(qkind))
 
 
-@pytest.mark.parametrize("t,k,b", [(64, 16, 8), (1003, 64, 13),
-                                   (4104, 128, 33)])
-def test_deps_join_and_max_conflict_equal_plain(cuda, t, k, b):
-    g = _inputs(np.random.default_rng(t), t, k, b, cuda)
-    args = (g["inc"], g["txn_id"], g["kind"], g["status"], g["active"],
-            g["offsets"], g["cols"], g["before"], g["qkind"])
+def _args(g):
+    return ((g["inc"], g["txn_id"], g["kind"], g["status"], g["active"],
+             g["offsets"], g["cols"], g["before"], g["qkind"]),
+            (g["inc"], g["ts"], g["txn_id"], g["active"], g["offsets"],
+             g["cols"]))
+
+
+# (t, k, b, keyword arguments of _inputs).  A block takes 8 query rows and
+# up to 2,048 slots (fewer threads when T is below that); a block stages at
+# most 4,096 query columns at a time.
+CASES = {
+    "64-16-8": (64, 16, 8, {}),
+    "1003-64-13": (1003, 64, 13, {}),
+    "4104-128-33": (4104, 128, 33, {}),
+    "T_below_one_warp": (20, 8, 5, {}),
+    "one_tile_burn_shape": (256, 16, 8, {"width": 2}),
+    "two_tiles_last_has_one_slot": (2049, 64, 13, {}),
+    "three_tiles_B_not_multiple_of_rows": (6147, 64, 21, {}),
+    "one_row": (4096, 32, 1, {"wide": 3}),
+    "rows_without_keys": (512, 16, 11, {"width": 0}),
+    "row_wider_than_stage": (4096, 64, 9, {"wide": 5000}),
+    "out_of_range_columns": (2048, 32, 16, {"width": 6, "oob": True}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_deps_join_and_max_conflict_equal_plain(cuda, case):
+    t, k, b, kw = CASES[case]
+    g = _inputs(np.random.default_rng(t), t, k, b, cuda, **kw)
+    args, margs = _args(g)
     before = dict(_kernels.LAUNCHES)
     assert torch.equal(_kernels.deps_join(*args),
                        _kernels.deps_join_plain(*args))
     if t % 8 == 0:
         assert torch.equal(_kernels.deps_join(*args, packed=True),
                            _kernels.deps_join_plain(*args, packed=True))
-    margs = (g["inc"], g["ts"], g["txn_id"], g["active"], g["offsets"],
-             g["cols"])
     assert torch.equal(_kernels.max_conflict(*margs),
                        _kernels.max_conflict_plain(*margs))
     torch.cuda.synchronize()
     assert _kernels.LAUNCHES["deps_join"] > before["deps_join"]
-    assert _kernels.LAUNCHES["max_conflict"] > before["max_conflict"]
+    assert _kernels.LAUNCHES["max_conflict"] == before["max_conflict"] + 1
+
+
+def test_graph_replays_equal_plain(cuda):
+    """K1 and K2, one tile and three, captured in one CUDA graph: every
+    replay's answers equal the plain versions, with the outputs overwritten
+    before each replay (a fold counter left over from an earlier replay
+    would leave K2's output unwritten)."""
+    sets = [_args(_inputs(np.random.default_rng(t), t, 64, 21, cuda))
+            for t in (256, 6147)]
+    want = [(_kernels.deps_join_plain(*a), _kernels.max_conflict_plain(*m))
+            for a, m in sets]
+    got = []
+
+    def body():
+        got[:] = [(_kernels.deps_join(*a), _kernels.max_conflict(*m))
+                  for a, m in sets]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        body()
+    for _ in range(3):
+        for outs, wants in zip(got, want):
+            for out, w in zip(outs, wants):
+                out.copy_(torch.bitwise_not(w))
+        graph.replay()
+        torch.cuda.synchronize()
+        for outs, wants in zip(got, want):
+            for out, w in zip(outs, wants):
+                assert torch.equal(out, w)
 
 
 def test_dense_entry_points_on_card_equal_cpu(cuda):
