@@ -12,17 +12,21 @@ same code; the device plane is rewritten:
 - ``config``          the reference's LocalConfig plus ``device`` ("cuda" by
                       default; "cpu" only when asked for);
 - ``device``          resolves that field, raising when the card is missing;
-- ``ops``             lane contract, the consult (``deps_kernels``,
-                      ``pallas_join``) and the release frontier in torch;
-                      ``ops/_kernels`` builds and launches the CUDA kernels
-                      of ``csrc/consult.cu`` (K1 deps join, K2 max conflict);
+- ``ops``             graph state, the consult (``deps_kernels``,
+                      ``pallas_join``), the closure/SCC/Kahn graph ops and
+                      the edge-frontier tier in torch; ``ops/_kernels``
+                      builds and launches the CUDA kernels of
+                      ``csrc/consult.cu`` (K1 deps join, K2 max conflict);
+- ``models``          the conflict-graph model (``txn_step``: witness,
+                      stabilise, one execution wave; its join is K1);
+- ``entry``           ``entry(device)``: that step with example arguments;
 - ``device_service``  the persistent batched consult service over a
                       copy-on-write device index;
 - ``impl.tpu_resolver`` the device-tier resolver on torch tensors;
 - ``observe.device``/``observe.profiler`` share-of-peak against the H100.
 
-Not ported yet: ``models`` (the batched conflict-graph engine), ``parallel``
-(multi-device), and the closure/SCC/levels kernels of ``ops``.
+Not ported yet: ``parallel`` (multi-device) and the port's own tools and
+bench.
 """
 
 __version__ = "0.1.0"

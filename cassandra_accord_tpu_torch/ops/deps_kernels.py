@@ -1,8 +1,8 @@
-"""The consult half of the batched dependency kernels, in torch.
+"""Batched dependency-graph kernels, in torch: join, closure, elision, Kahn, SCC.
 
-Port of ``cassandra_accord_tpu/ops/deps_kernels.py`` :45-221 with the same
-public signatures: ``[T, K]`` int8 index incidence, ``[B, K]`` int8 query
-incidence, ``[*, 5]`` int32 timestamp lanes.
+Port of ``cassandra_accord_tpu/ops/deps_kernels.py`` with the same public
+signatures: ``[T, K]`` int8 index incidence, ``[B, K]`` int8 query
+incidence, ``[*, 5]`` int32 timestamp lanes, ``[T, T]`` int8 adjacency.
 
 - ``overlap_join``      <- ``CommandsForKey.mapReduceActive`` per-key scans
                           (cfk/CommandsForKey.java:925-1000) + KeyDeps
@@ -12,25 +12,71 @@ incidence, ``[*, 5]`` int32 timestamp lanes.
 - ``max_conflict_keys`` <- the per-key MaxConflicts consult of the replica
                           timestamp proposal (MaxConflicts.java:32).
 - ``consult``/``consult_packed`` <- both halves fused per query batch.
+- ``max_conflict_ts``   <- MaxConflicts over a deps mask (PreAccept.java).
+- ``transitive_closure``/``elide`` <- the reachability the reference keeps
+                          by deps-by-omission (CommandsForKey.java:101-157).
+- ``kahn_frontier``/``kahn_levels`` <- the WaitingOn execution frontier
+                          (Commands.maybeExecute, Commands.java:617).
+- ``scc_condense``      <- cycle handling (Commands.java:707-775).
 
-Inside, each function converts to the kernels' layout — the incidence
-transposed to ``[K, T]`` uint8, the query to CSR — and calls kernel K1
+The join functions convert to the kernels' layout — the incidence
+transposed to ``[K, T]`` uint8, the query to CSR — and call kernel K1
 (``_kernels.deps_join``) and/or K2 (``_kernels.max_conflict``).  On CPU
 tensors those wrappers run their plain torch versions; on CUDA tensors the
-hand-written kernels (csrc/consult.cu).  The closure, elision, Kahn-level
-and SCC kernels of the reference are not ported yet.
+hand-written kernels (csrc/consult.cu).  The graph functions are ``jax.jit``
+code in the reference, not Pallas, so they are torch ops on the tensors'
+device; their while loops are Python loops with the reference's bounds,
+reading one flag back from the device per round.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from . import _kernels
-from ._kernels import lex_max_masked as _lex_max_masked  # noqa: F401
+from ._kernels import lex_max_masked as _lex_max_masked
 from ._kernels import witness_table as _witness_table
+from .graph_state import APPLIED, INVALIDATED, STABLE
 
 WITNESSES = torch.as_tensor(_witness_table())
+
+# rows of a [T, T] operand handled per step of ``_bool_matvec``: about 32 MB
+# of int8, so the step's temporaries stay small beside the 50 MB L2 of an
+# H100 and no full-size wide copy of the adjacency is ever made
+MATVEC_CHUNK_ELEMS = 1 << 25
+
+
+def _bool_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Boolean matrix product (a @ b) > 0 of 0/1 operands.
+
+    One torch.matmul on float copies: bf16 on CUDA (the tensor cores), f32
+    elsewhere.  Either is exact for this test: every product is 0 or 1 and
+    the sum accumulates in f32 (or rounds to bf16), so it is > 0 iff some
+    product is 1 — a positive count stays positive in any float rounding,
+    and TF32's 10-bit mantissa holds 0 and 1 exactly.  Never an int8 or
+    uint8 sum, which would wrap to 0 at 256."""
+    dt = torch.bfloat16 if a.device.type == "cuda" else torch.float32
+    return torch.matmul(a.to(dt), b.to(dt)) > 0
+
+
+def _bool_matvec(a: torch.Tensor, v: torch.Tensor,
+                 rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[R] bool: row r of the [T, N] 0/1 matrix ``a`` (row ``rows[r]`` when
+    ``rows`` is given) meets the [N] bool ``v``, i.e. the rows of
+    ``_bool_matmul(a, v[:, None])[:, 0]`` — on ``a``'s own int8/bool
+    elements in row chunks, never as a full-size float copy (at T = 65,536
+    the adjacency is 4 GiB of int8)."""
+    n = a.shape[1]
+    r = a.shape[0] if rows is None else rows.numel()
+    out = torch.empty((r,), dtype=torch.bool, device=a.device)
+    vv = v.to(torch.bool).to(a.dtype)[None, :]
+    step = max(1, MATVEC_CHUNK_ELEMS // max(1, n))
+    for r0 in range(0, r, step):
+        block = a[r0:r0 + step] if rows is None \
+            else a.index_select(0, rows[r0:r0 + step])
+        torch.any(block * vv, dim=1, out=out[r0:r0 + step])
+    return out
 
 
 def incidence_T(inc: torch.Tensor) -> torch.Tensor:
@@ -155,3 +201,137 @@ def consult_packed(index_live_inc: torch.Tensor, index_key_inc: torch.Tensor,
     return _consult(index_live_inc, index_key_inc, index_ts, index_txn_id,
                     index_kind, index_status, index_active, batch_key_inc,
                     batch_before, batch_kind, packed=True)
+
+
+def max_conflict_ts(index_exec_at: torch.Tensor,  # [T, 5] int32
+                    deps: torch.Tensor,           # [B, T] bool
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per new txn, the lexicographic max executeAt over its conflict set —
+    the ``maxConflicts`` input to the replica-side timestamp proposal
+    (PreAccept.java:245-267, MaxConflicts.java:32).  The proposal itself
+    stays on the host (its HLC register is host clock state).
+
+    Returns (conflict_max [B, 5] int32, any_dep [B] bool)."""
+    deps = deps.to(torch.bool)
+    return (_lex_max_masked(index_exec_at[None, :, :], deps),
+            torch.any(deps, dim=1))
+
+
+# ---------------------------------------------------------------------------
+# Transitive closure / elision
+# ---------------------------------------------------------------------------
+
+def transitive_closure(adj: torch.Tensor) -> torch.Tensor:
+    """Reachability closure of a [T, T] 0/1 adjacency by repeated squaring:
+    R_{k+1} = R_k | R_k @ R_k, log2(T)+1 iterations.  Returns [T, T] bool."""
+    t = adj.shape[0]
+    iters = max(1, int(t - 1).bit_length())
+    reach = adj.to(torch.bool)
+    for _ in range(iters):
+        reach = reach | _bool_matmul(reach, reach)
+    return reach
+
+
+def elide(adj: torch.Tensor) -> torch.Tensor:
+    """Transitive reduction on DAG edges: drop i->j if a path i->k->..->j
+    exists (CommandsForKey.java:144-157).  Edges inside a cycle are kept.
+    Returns [T, T] bool."""
+    a = adj.to(torch.bool)
+    reach = transitive_closure(a)
+    implied = _bool_matmul(a, reach)   # path of length >= 2
+    in_cycle = reach & reach.T
+    return a & (~implied | in_cycle)
+
+
+# ---------------------------------------------------------------------------
+# Execution frontier (Kahn) and full schedule
+# ---------------------------------------------------------------------------
+
+def kahn_frontier(adj: torch.Tensor, status: torch.Tensor,
+                  active: torch.Tensor) -> torch.Tensor:
+    """Which txns are ready to execute NOW: stable, active, and every
+    dependency already applied/invalidated/evicted (Commands.maybeExecute,
+    Commands.java:617-652).  Returns [T] bool.
+
+    Only the rows of active STABLE slots can be ready, so only those rows of
+    the adjacency are read (the reference's product covers every row and
+    masks the others out after: the same answer)."""
+    dep_done = (status == APPLIED) | (status == INVALIDATED) | ~active
+    ready = active & (status == STABLE)
+    rows = torch.nonzero(ready).squeeze(1)
+    ready[rows] = ~_bool_matvec(adj, ~dep_done, rows)
+    return ready
+
+
+def peel_levels(ready, active: torch.Tensor) -> torch.Tensor:
+    """The level-peeling loop shared by the Kahn and SCC schedules:
+    ``ready(done)`` says which slots may take the current level.  Stops
+    when every active slot is done, after T levels, or on a round with no
+    progress (a cycle), exactly as the reference's while loop.
+    Returns [T] int32 levels, -1 where never peeled."""
+    t = active.shape[0]
+    level = torch.full((t,), -1, dtype=torch.int32, device=active.device)
+    done = ~active
+    it = 0
+    while it < t and bool(torch.any(active & ~done)):
+        newly = active & ~done & ready(done)
+        if not bool(torch.any(newly)):
+            break                               # no progress => cycle: stop
+        level[newly] = it
+        done = done | newly
+        it += 1
+    return level
+
+
+def kahn_levels(adj: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """Full topological schedule: level[i] = longest dependency chain below i;
+    executing levels in order respects every edge.  Peels zero-indegree txns
+    one level per round.  Cycle members never peel and keep level -1 (route
+    them through scc_condense).  Returns [T] int32."""
+    a = adj.to(torch.bool) & active[:, None] & active[None, :]
+    return peel_levels(lambda done: ~_bool_matvec(a, ~done), active)
+
+
+# ---------------------------------------------------------------------------
+# SCC condensation (cycle-heavy adversarial graphs, BASELINE config 5)
+# ---------------------------------------------------------------------------
+
+def comp_any(labels: torch.Tensor, flag: torch.Tensor) -> torch.Tensor:
+    """[T] bool: some slot of i's component has ``flag`` — the per-component
+    max of the reference's ``zeros.at[labels].max(flag, mode="drop")``
+    read back at ``labels``.  Inactive slots carry label -1 and a flag of
+    0; JAX sends -1 to slot T-1, where a 0 changes nothing, and torch
+    refuses -1, so those entries go to slot 0 with their 0 instead."""
+    lab = labels.long().clamp_min(0)
+    blocked = torch.zeros(labels.shape, dtype=torch.int32,
+                          device=labels.device).scatter_reduce(
+        0, lab, flag.to(torch.int32), "amax", include_self=True)
+    return blocked[lab] != 0
+
+
+def scc_condense(adj: torch.Tensor,
+                 active: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Strongly-connected-component labels via matmul reachability:
+    i ~ j iff reach[i,j] & reach[j,i].  Label = smallest member slot (-1 on
+    inactive slots).
+
+    Returns (labels [T] int32, level [T] int32): level is a topological level
+    over the condensation, shared by all members of an SCC."""
+    t = adj.shape[0]
+    a = adj.to(torch.bool) & active[:, None] & active[None, :]
+    reach = transitive_closure(a)
+    same = (reach & reach.T) | torch.eye(t, dtype=torch.bool, device=a.device)
+    same = same & active[:, None] & active[None, :]
+    idx = torch.arange(t, dtype=torch.int32, device=a.device)
+    labels = torch.where(same, idx[None, :], t).amin(dim=1).to(torch.int32)
+    labels = torch.where(active, labels, -1)
+
+    cond_edge = a & (labels[:, None] != labels[None, :])
+
+    def ready(done):
+        blocked = _bool_matvec(cond_edge, ~done)
+        # whole components move together: ready iff NO undone member has a
+        # blocked cross-component dependency
+        return ~comp_any(labels, blocked & active & ~done)
+
+    return labels, peel_levels(ready, active)

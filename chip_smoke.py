@@ -27,7 +27,14 @@ Phases, one JSON line each; any failure exits non-zero:
             trace must equal the same burn on the host backend.  The same
             burn through the resolver's one-shot device path (no service)
             must equal it too;
-6. replay   a recorded burn replayed at T~32,768 through the host and
+6. graph    the conflict-graph model: txn_step at T=65,536, K=512,
+            B=256 with a gc step every 8 (K1 launches counted, each K1
+            answer held against its plain version, step ms, peak memory and
+            the step's floor); a T=4,096 trajectory with padded batches,
+            card against CPU bit for bit; closure/elide/SCC/Kahn at T=8,192
+            dense against their edge twins, card against CPU; the edge
+            kernels at T=1,048,576 (E ~ 8.4M), card against CPU;
+7. replay   a recorded burn replayed at T~32,768 through the host and
             device tiers with sampled parity against the cfk walk.
 
 Then the card's nvidia-smi line, one ``{"kernels": [...]}`` line and, last,
@@ -46,7 +53,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(os.getcwd(), "chiprun_out")
-PHASES = ("env", "build", "kernels", "service", "burn", "replay")
+PHASES = ("env", "build", "kernels", "service", "burn", "graph", "replay")
 
 # H100 SXM data sheet (NVIDIA), dense rates at the 700 W limit: HBM3 at
 # 3.35 TB/s; 67 TFLOP/s FP32 on the CUDA cores, the rate class the consult
@@ -55,6 +62,7 @@ PHASES = ("env", "build", "kernels", "service", "burn", "replay")
 HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 67e12
 INT8_TENSOR_OPS_PER_S = 1979e12
+BF16_TENSOR_FLOPS_PER_S = 989e12
 
 TPU_KERNEL = "cassandra_accord_tpu/ops/pallas_join.py:36"   # _join_kernel
 SOURCE = "cassandra_accord_tpu_torch/csrc/consult.cu"
@@ -647,6 +655,441 @@ def phase_burn(ctx):
     return out
 
 
+# the graph phase's shapes: txn_step at kernel shape A's widths (bench.py
+# :214) over a half-full 65,536-slot state; the trajectory checked against
+# the CPU; BASELINE config 5's bench graph (bench.py:378-409) at T=8,192
+# for the dense ops and at its own 1,048,576 txns for the edge kernels
+GRAPH = dict(T=65536, K=512, B=256, steps=40, gc_every=8,
+             traj_T=4096, traj_K=512, traj_B=64, traj_steps=16,
+             ops_T=8192, edges_T=1 << 20, deps_per_txn=8, budget_s=120.0)
+
+
+def _prefill(np, rng, t, k, n):
+    """A GraphState as numpy fields: slots [0, n) hold make_index's txns
+    (60% APPLIED, 5% INVALIDATED, 35% STABLE, with wait edges from later to
+    earlier STABLE txns), the rest are free."""
+    from cassandra_accord_tpu_torch.ops import graph_state as gs
+    key_inc, _live, lanes, ts, kind, _st, _act = make_index(np, rng, n, k, 2)
+    f = {"key_inc": np.zeros((t, k), np.int8),
+         "ts": np.zeros((t, 5), np.int32), "txn_id": np.zeros((t, 5), np.int32),
+         "kind": np.zeros(t, np.int8), "status": np.zeros(t, np.int8),
+         "adj": np.zeros((t, t), np.int8), "active": np.zeros(t, bool)}
+    f["key_inc"][:n], f["ts"][:n], f["txn_id"][:n] = key_inc, ts, lanes
+    f["kind"][:n] = kind
+    f["status"][:n] = rng.choice([gs.APPLIED, gs.INVALIDATED, gs.STABLE], n,
+                                 p=[0.6, 0.05, 0.35])
+    f["active"][:n] = True
+    stable = np.flatnonzero(f["status"] == gs.STABLE)
+    i, j = rng.choice(stable, n // 8), rng.choice(stable, n // 8)
+    later = lanes[i, 2] > lanes[j, 2]
+    waiter, dep = np.where(later, i, j), np.where(later, j, i)
+    f["adj"][waiter[i != j], dep[i != j]] = 1
+    return f
+
+
+def _batch_fields(np, rng, t, k, b, hlc0, slots, n_valid):
+    """One batch as numpy fields: make_queries' 2-key rows (half on the hot
+    keys), TxnIds hlc0, hlc0+1, ...; rows from ``n_valid`` on are padding."""
+    rows, _before, qkind = make_queries(np, rng, b, k, t, 2)
+    key_inc = np.zeros((b, k), np.int8)
+    for r, cols in enumerate(rows):
+        key_inc[r, cols] = 1
+    lanes = np.zeros((b, 5), np.int32)
+    lanes[:, 0] = 1
+    lanes[:, 2] = hlc0 + np.arange(b)
+    lanes[:, 4] = rng.integers(1, 16, b)
+    return dict(slots=np.asarray(slots, np.int32), key_inc=key_inc,
+                txn_id=lanes, kind=qkind, valid=np.arange(b) < n_valid)
+
+
+def _watermark(np, hlc):
+    return np.array([1, 0, hlc, 0, 0], np.int32)
+
+
+class JoinCheck:
+    """Installed over ``_kernels.deps_join`` while the graph path runs: the
+    real wrapper does every launch (and its count); each call's inputs are
+    copied, because the step then writes the state in place, and
+    ``verify`` holds each answer against the plain version exactly."""
+
+    def __init__(self, torch, kmod):
+        self.torch, self.k = torch, kmod
+        self.real = kmod.deps_join
+        self.pending, self.checked, self.last = [], 0, None
+
+    def call(self, *args, **kwargs):
+        got = self.real(*args, **kwargs)
+        self.pending.append(
+            (tuple(a.clone() if isinstance(a, self.torch.Tensor) else a
+                   for a in args), kwargs, got))
+        return got
+
+    def verify(self):
+        for args, kwargs, got in self.pending:
+            want = self.k.deps_join_plain(*args, **kwargs)
+            need(self.torch.equal(got, want),
+                 "deps_join differs from its plain version on the graph path")
+            self.checked += 1
+            self.last = (args, kwargs)
+        self.pending = []
+
+    def __enter__(self):
+        self.k.deps_join = self.call
+        return self
+
+    def __exit__(self, *exc):
+        self.k.deps_join = self.real
+
+
+def _device_edges(torch, adj, rows_per_chunk):
+    """(src, dst) int32 of the [T, T] adjacency's nonzeros in row-major
+    order, found on the card a block of rows at a time."""
+    srcs, dsts = [], []
+    for r0 in range(0, adj.shape[0], rows_per_chunk):
+        nz = torch.nonzero(adj[r0:r0 + rows_per_chunk])
+        srcs.append((nz[:, 0] + r0).to(torch.int32))
+        dsts.append(nz[:, 1].to(torch.int32))
+    return torch.cat(srcs), torch.cat(dsts)
+
+
+def _stats(xs):
+    ys = sorted(xs)
+    return {"n": len(ys), "median": ys[len(ys) // 2], "mean": sum(ys) / len(ys),
+            "min": ys[0], "max": ys[-1]}
+
+
+def _profile(torch, fn, top=10):
+    """``fn`` under torch.profiler (CPU and CUDA activity): its wall ms, the
+    device ms summed over its kernels, their share of the wall time, and
+    the ops that took the most device time (self time, ms, calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - w0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    def on_card(e):   # kernels and copies, not the ops that launched them
+        return str(getattr(e, "device_type", "")).endswith("CUDA")
+    rows = sorted((e for e in prof.key_averages() if on_card(e)), key=dev_us,
+                  reverse=True)
+    device = sum(dev_us(e) for e in rows) / 1e3
+    return {"wall_ms": wall, "device_ms": device,
+            "device_busy_share": device / wall if wall else None,
+            "top": [[e.key[:200], dev_us(e) / 1e3, e.count]
+                    for e in rows[:top]]}
+
+
+def _graph_step(ctx):
+    """txn_step at full width: the graph path's K1 launches, each answer
+    held against the plain version, step times beside the floor."""
+    import numpy as np
+    torch = ctx["torch"]
+    from cassandra_accord_tpu_torch.models import conflict_graph as cg
+    from cassandra_accord_tpu_torch.ops import _kernels as K
+    from cassandra_accord_tpu_torch.ops import deps_kernels as dk
+    from cassandra_accord_tpu_torch.ops import frontier_kernels as fk
+    from cassandra_accord_tpu_torch.ops import graph_state as gs
+    t, k, b = GRAPH["T"], GRAPH["K"], GRAPH["B"]
+    steps, every = GRAPH["steps"], GRAPH["gc_every"]
+    dev = ctx["dev"]
+    rng = np.random.default_rng(17)
+    n0 = t // 2
+    t0 = time.perf_counter()
+    fields = _prefill(np, rng, t, k, n0)
+    state = gs.state_from_numpy(fields, dev)
+    del fields
+    sync(ctx)
+    prefill_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, wall_ms, gc_ms, applied, cand = [], [], [], [], []
+    gc_evicted = reused = 0
+    freed = set()
+    with JoinCheck(torch, K) as chk:
+        K.reset_launches()                        # just before the path
+        for step in range(steps):
+            free = torch.nonzero(~state.active)[:b, 0].cpu().numpy()
+            need(len(free) == b, f"step {step}: {len(free)} free slots")
+            reused += len(freed & set(free.tolist()))
+            hlc0 = 1000 + n0 + step * b
+            f = _batch_fields(np, rng, t, k, b, hlc0, free, b)
+            batch = cg.TxnBatch(**{n: torch.from_numpy(v).to(dev)
+                                   for n, v in f.items()})
+            sync(ctx)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            w0 = time.perf_counter()
+            e0.record()
+            state, deps, done = cg.txn_step(state, batch)
+            e1.record()
+            e1.synchronize()
+            wall_ms.append((time.perf_counter() - w0) * 1e3)
+            step_ms.append(e0.elapsed_time(e1))
+            applied.append(int(done.sum()))
+            # rows the frontier read: applied now, or still STABLE
+            cand.append(applied[-1] + int(
+                ((state.status == gs.STABLE) & state.active).sum()))
+            chk.verify()
+            if (step + 1) % every == 0:
+                before = state.active.clone()
+                wm = torch.from_numpy(_watermark(np, hlc0 - 4 * b)).to(dev)
+                g0 = torch.cuda.Event(enable_timing=True)
+                g1 = torch.cuda.Event(enable_timing=True)
+                g0.record()
+                state = cg.gc_step(state, wm)
+                g1.record()
+                g1.synchronize()
+                gc_ms.append(g0.elapsed_time(g1))
+                ev = before & ~state.active
+                gc_evicted += int(ev.sum())
+                freed |= set(torch.nonzero(ev)[:, 0].cpu().tolist())
+        sync(ctx)
+        launches = dict(K.LAUNCHES)               # just after it
+
+    # where a step's and a gc step's time goes (after the counted path):
+    # batches made and uploaded first, slots picked as in the loop
+    extra = [_batch_fields(np, rng, t, k, b, 1000 + n0 + (steps + i) * b,
+                           np.zeros(b), b) for i in range(8)]
+    extra = [cg.TxnBatch(**{n: torch.from_numpy(v).to(dev)
+                            for n, v in f.items()}) for f in extra]
+
+    def more_steps(batches):
+        nonlocal state
+        for bt in batches:
+            free = torch.nonzero(~state.active)[:b, 0].to(torch.int32)
+            state, _d, _a = cg.txn_step(state, bt._replace(slots=free))
+    more_steps(extra[:4])
+    profiles = {"txn_step_x4": _profile(torch, lambda: more_steps(extra[4:]))}
+    wm = torch.from_numpy(_watermark(np, 1000 + n0 + (steps + 8) * b)).to(dev)
+    profiles["gc_step"] = _profile(torch, lambda: cg.gc_step(state, wm))
+    peak = torch.cuda.max_memory_allocated()
+    need(launches["deps_join"] == steps,
+         f"the graph path launched K1 {launches['deps_join']} times, "
+         f"expected one per step ({steps})")
+    need(chk.checked == steps, f"{chk.checked} K1 answers checked")
+    need(gc_evicted > 0 and reused > 0,
+         f"no slot recycled: evicted {gc_evicted}, reused {reused}")
+    need(sum(applied) > 0, "no txn applied")
+    ctx["graph_launches"] = launches
+    ctx["graph_join"] = chk.last
+    # the final state's frontier: dense product against the edge kernel
+    ready = dk.kahn_frontier(state.adj, state.status, state.active)
+    src, dst = _device_edges(torch, state.adj, 4096)
+    ready_e = fk.kahn_frontier_edges(
+        src, dst, torch.ones_like(src, dtype=torch.bool), state.status,
+        state.active)
+    need(torch.equal(ready, ready_e),
+         "full-width frontier: dense differs from the edge kernel")
+    # eager: the frontier reads its candidate rows back, so no graph capture
+    frontier_ms = eager_ms(
+        torch, lambda: dk.kahn_frontier(state.adj, state.status, state.active),
+        5, ctx["flush"])
+    # floors: one read of adj (the reference's frontier multiplies every
+    # row); and the data's: the adjacency rows this run's frontier needed
+    # (its candidates) read, the batch's rows and deps mask written, the
+    # key incidence read once
+    floor_ms = t * t / HBM_BYTES_PER_S * 1e3
+    data_floor_ms = [(c * t + 2 * b * t + t * k) / HBM_BYTES_PER_S * 1e3
+                     for c in cand]
+    out = {"T": t, "K": k, "B": b, "steps": steps, "gc_every": every,
+           "prefilled": n0, "prefill_s": prefill_s,
+           "k1_launches": launches["deps_join"],
+           "k1_checked": chk.checked, "applied_per_step": applied,
+           "edges_final": int(src.numel()), "gc_evicted": gc_evicted,
+           "slots_reused": reused,
+           "frontier_rows": _stats(cand),
+           "step_ms": _stats(step_ms), "wall_ms": _stats(wall_ms),
+           "gc_ms": _stats(gc_ms), "frontier_ms": frontier_ms,
+           "floor_ms": floor_ms, "data_floor_ms": _stats(data_floor_ms),
+           "gc_floor_extra_ms": 2 * floor_ms,
+           "profiles": profiles,
+           "peak_bytes": peak, "state_bytes": sum(
+               x.numel() * x.element_size() for x in state)}
+    del state, deps, done, ready, ready_e, src, dst
+    return out
+
+
+def _graph_trajectory(ctx):
+    """16 txn_steps at T=4,096 on the card and on the CPU through the same
+    port functions, partial padded batches and one gc step: every step's
+    deps and applied masks and the final state equal bit for bit."""
+    import numpy as np
+    torch = ctx["torch"]
+    from cassandra_accord_tpu_torch.models import conflict_graph as cg
+    from cassandra_accord_tpu_torch.ops import graph_state as gs
+    t, k, b = GRAPH["traj_T"], GRAPH["traj_K"], GRAPH["traj_B"]
+    rng = np.random.default_rng(19)
+    n0 = t // 2
+    fields = _prefill(np, rng, t, k, n0)
+    devs = (ctx["dev"], "cpu")
+    states = {d: gs.state_from_numpy(fields, d) for d in devs}
+    applied = 0
+    for step in range(GRAPH["traj_steps"]):
+        n_valid = b if step % 4 else int(rng.integers(1, b))
+        free = np.flatnonzero(~states["cpu"].active.numpy())
+        slots = rng.integers(0, t, b)
+        slots[:n_valid] = free[:n_valid]
+        f = _batch_fields(np, rng, t, k, b, 1000 + n0 + step * b, slots,
+                          n_valid)
+        outs = []
+        for d in devs:
+            batch = cg.TxnBatch(**{n: torch.from_numpy(v).to(d)
+                                   for n, v in f.items()})
+            states[d], deps, done = cg.txn_step(states[d], batch)
+            outs.append((deps.cpu(), done.cpu()))
+        need(torch.equal(outs[0][0], outs[1][0]),
+             f"trajectory step {step}: deps differ card vs CPU")
+        need(torch.equal(outs[0][1], outs[1][1]),
+             f"trajectory step {step}: applied differs card vs CPU")
+        applied += int(outs[1][1].sum())
+        if step == 7:
+            wm = _watermark(np, 1000 + n0 + 4 * b)
+            for d in devs:
+                states[d] = cg.gc_step(states[d], torch.from_numpy(wm).to(d))
+    a, c = (gs.state_to_numpy(states[d]) for d in devs)
+    for name in a:
+        need(np.array_equal(a[name], c[name]),
+             f"trajectory final state: {name} differs card vs CPU")
+    need(applied > 0, "trajectory applied nothing")
+    return {"T": t, "K": k, "B": b, "steps": GRAPH["traj_steps"],
+            "applied": applied, "equal_to_cpu": True}
+
+
+def _graph_ops(ctx):
+    """Closure, elision, SCC, Kahn levels and the frontier on config 5's
+    bench graph: dense on the card, equal to their edge twins on the card,
+    which equal the same calls on the CPU."""
+    import numpy as np
+    torch = ctx["torch"]
+    from cassandra_accord_tpu_torch.ops import deps_kernels as dk
+    from cassandra_accord_tpu_torch.ops import frontier_kernels as fk
+    from cassandra_accord_tpu_torch.ops import graph_state as gs
+    t = GRAPH["ops_T"]
+    rng = np.random.default_rng(9)
+    adj = (rng.random((t, t)) < (GRAPH["deps_per_txn"] / t)).astype(np.int8)
+    np.fill_diagonal(adj, 0)
+    status = np.full((t,), gs.STABLE, np.int8)
+    active = np.ones((t,), bool)
+    dev = ctx["dev"]
+    a, st, act = (torch.from_numpy(x).to(dev) for x in (adj, status, active))
+    cases = {
+        "transitive_closure": (lambda: dk.transitive_closure(a),
+                               lambda d: fk.transitive_closure_csr(adj, d)),
+        "elide": (lambda: dk.elide(a), lambda d: fk.elide_csr(adj, d)),
+        "scc_condense": (lambda: dk.scc_condense(a, act),
+                         lambda d: fk.scc_condense_csr(adj, active, d)),
+        "kahn_levels": (lambda: dk.kahn_levels(a, act),
+                        lambda d: fk.kahn_levels_csr(adj, active, d)),
+        "kahn_frontier": (lambda: dk.kahn_frontier(a, st, act),
+                          lambda d: fk.kahn_frontier_csr(adj, status, active,
+                                                         d)),
+    }
+    out = {"T": t, "edges": int(adj.sum())}
+    for name, (dense, twin) in cases.items():
+        dense()
+        sync(ctx)
+        ms = _elapsed_ms(torch, dense)
+        got = dense()
+        got = [x.cpu().numpy() for x in got] if isinstance(got, tuple) \
+            else [got.cpu().numpy()]
+        w0 = time.perf_counter()
+        on_card = twin(dev)
+        twin_card_ms = (time.perf_counter() - w0) * 1e3
+        w0 = time.perf_counter()
+        on_cpu = twin("cpu")
+        twin_cpu_ms = (time.perf_counter() - w0) * 1e3
+        on_card = list(on_card) if isinstance(on_card, tuple) else [on_card]
+        on_cpu = list(on_cpu) if isinstance(on_cpu, tuple) else [on_cpu]
+        for x, y, z in zip(got, on_card, on_cpu):
+            need(np.array_equal(x, y), f"{name}: dense differs from its edge "
+                 f"twin on the card at T={t}")
+            need(np.array_equal(y, z), f"{name}: edge twin differs card vs "
+                 f"CPU at T={t}")
+        out[name] = {"dense_ms": ms, "twin_card_wall_ms": twin_card_ms,
+                     "twin_cpu_wall_ms": twin_cpu_ms}
+    squarings = max(1, int(t - 1).bit_length())
+    flops = squarings * 2.0 * t ** 3
+    out["transitive_closure"].update(
+        squarings=squarings, flops=flops,
+        bound_ms=flops / BF16_TENSOR_FLOPS_PER_S * 1e3, bound_by="operations")
+    return out
+
+
+def _graph_edges(ctx):
+    """The edge kernels at config 5's own size, T=1,048,576 with ~8 deps per
+    txn, from a seeded generator (no dense matrix): card against CPU."""
+    import numpy as np
+    torch = ctx["torch"]
+    from cassandra_accord_tpu_torch.ops import frontier_kernels as fk
+    from cassandra_accord_tpu_torch.ops import graph_state as gs
+    t = GRAPH["edges_T"]
+    rng = np.random.default_rng(9)
+    e = GRAPH["deps_per_txn"] * t
+    src = rng.integers(0, t, e).astype(np.int32)
+    dst = rng.integers(0, t, e).astype(np.int32)
+    keep = src != dst
+    src, dst = src[keep], dst[keep]
+    s, d, v = fk._pad_edges(src, dst, fk._pow2(len(src)))
+    status = np.full((t,), gs.STABLE, np.int8)
+    status[rng.random(t) < 0.3] = gs.APPLIED
+    active = rng.random(t) < 0.99
+    runs = {}
+    for dv in (ctx["dev"], "cpu"):
+        ts_ = [torch.from_numpy(x).to(dv) for x in (s, d, v, status, active)]
+        res, times, rounds = {}, {}, {}
+        for name, fn, args in (
+                ("kahn_frontier_edges", fk.kahn_frontier_edges, ts_),
+                ("kahn_levels_edges", fk.kahn_levels_edges,
+                 ts_[:3] + ts_[4:]),
+                ("scc_condense_edges", fk.scc_condense_edges,
+                 ts_[:3] + ts_[4:])):
+            fk.reset_rounds()
+            if dv != "cpu":
+                sync(ctx)
+            w0 = time.perf_counter()
+            r = fn(*args)
+            r = [x.cpu().numpy() for x in r] if isinstance(r, tuple) \
+                else [r.cpu().numpy()]
+            times[name] = (time.perf_counter() - w0) * 1e3
+            res[name] = r
+            rounds[name] = {k2: n for k2, n in fk.ROUNDS.items() if n}
+        runs[dv] = (res, times, rounds)
+    (card, card_ms, card_rounds), (cpu, cpu_ms, cpu_rounds) = \
+        runs[ctx["dev"]], runs["cpu"]
+    for name in card:
+        for x, y in zip(card[name], cpu[name]):
+            need(np.array_equal(x, y), f"{name}: card differs from CPU at "
+                 f"T={t}")
+        need(card_rounds[name] == cpu_rounds[name],
+             f"{name}: rounds differ card vs CPU")
+    labels, level = card["scc_condense_edges"]
+    return {"T": t, "edges": int(len(src)), "edge_slots": int(len(s)),
+            "card_wall_ms": card_ms, "cpu_wall_ms": cpu_ms,
+            "rounds": card_rounds,
+            "ready": int(card["kahn_frontier_edges"][0].sum()),
+            "kahn_levels": int(card["kahn_levels_edges"][0].max()) + 1,
+            "components": int(len(np.unique(labels[labels >= 0]))),
+            "largest_component": int(np.bincount(labels[labels >= 0]).max()),
+            "condensed_levels": int(level.max()) + 1,
+            "equal_to_cpu": True}
+
+
+def phase_graph(ctx):
+    t0 = time.perf_counter()
+    out = {"step": _graph_step(ctx), "trajectory": _graph_trajectory(ctx),
+           "ops": _graph_ops(ctx), "edges": _graph_edges(ctx)}
+    seconds = time.perf_counter() - t0
+    need(seconds <= GRAPH["budget_s"],
+         f"graph phase took {seconds:.1f} s > {GRAPH['budget_s']} s")
+    return out
+
+
 def phase_replay(ctx):
     from cassandra_accord_tpu_torch.harness.consult_trace import (
         record_burn, scaled_replay)
@@ -697,14 +1140,19 @@ ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
 
 def kernels_line(ctx):
     """One entry per kernel: the main path's (the burn's) launch count and
-    the numbers at the largest call it made; every other measured shape
-    (the full-size synthetic ones, the replay's largest call) under
+    the numbers at the largest call it made, and the graph path's launch
+    count; every other measured shape (the full-size synthetic ones, the
+    replay's largest call, the full-width txn_step's K1 call) under
     ``shapes``, none of them launched on the main path."""
     for key, path in (("burn_checker", "burn"), ("replay_checker", "replay")):
         chk = ctx.get(key)
         if chk is not None:
             for name, (_size, args, kwargs) in sorted(chk.largest.items()):
                 measure(ctx, name, f"{path}_largest", args, kwargs, 20, path)
+    if ctx.get("graph_join") is not None:
+        args, kwargs = ctx["graph_join"]
+        measure(ctx, "deps_join", "graph_step_T{T}_K{K}_B{B}".format(**GRAPH),
+                args, kwargs, 20, "graph")
     entries = []
     for name in REPLACES:
         rows = [r for r in ctx["rows"] if r["name"] == name]
@@ -714,7 +1162,8 @@ def kernels_line(ctx):
         e = {"name": name, "route": "cuda", "source": SOURCE,
              "replaces": REPLACES[name],
              "launches": ctx.get("burn_launches", {}).get(name, 0),
-             "replay_launches": ctx.get("replay_launches", {}).get(name, 0)}
+             "replay_launches": ctx.get("replay_launches", {}).get(name, 0),
+             "graph_launches": ctx.get("graph_launches", {}).get(name, 0)}
         e.update({k: head[k] for k in ROW_KEYS})
         e["shapes"] = [dict({k: r[k] for k in ROW_KEYS}, main_path_launches=0)
                        for r in rows if r is not head]
@@ -754,7 +1203,7 @@ def main(argv=None) -> int:
            "real": {"deps_join": _kernels.deps_join,
                     "max_conflict": _kernels.max_conflict}}
     fns = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
-           "service": phase_service, "burn": phase_burn,
+           "service": phase_service, "burn": phase_burn, "graph": phase_graph,
            "replay": phase_replay}
     t_all = time.perf_counter()
     for name in PHASES:

@@ -24,6 +24,7 @@ PORTED = {
     "observe/device.py", "observe/profiler.py",
     "device_service/__init__.py", "device_service/index.py",
     "device_service/kernel.py", "device_service/service.py",
+    "models/__init__.py", "models/conflict_graph.py", "entry.py",
 }
 
 

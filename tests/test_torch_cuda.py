@@ -1,4 +1,5 @@
-"""The hand-written CUDA consult kernels against their plain versions.
+"""The hand-written CUDA consult kernels against their plain versions, and
+the conflict-graph model and graph ops on the card against the CPU.
 
 These need an NVIDIA card (sm_90a) and nvcc: without CUDA every test here
 skips with that reason.  Run them on the card with
@@ -11,8 +12,12 @@ import numpy as np
 import pytest
 import torch
 
+from cassandra_accord_tpu_torch.entry import entry
+from cassandra_accord_tpu_torch.models import conflict_graph as cg
 from cassandra_accord_tpu_torch.ops import _kernels
 from cassandra_accord_tpu_torch.ops import deps_kernels as dk
+from cassandra_accord_tpu_torch.ops import frontier_kernels as fk
+from cassandra_accord_tpu_torch.ops import graph_state as gs
 
 
 @pytest.fixture
@@ -168,3 +173,51 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                            odd["status"], odd["active"], odd["offsets"],
                            odd["cols"], odd["before"], odd["qkind"],
                            packed=True)
+
+
+def test_txn_step_on_card_equals_cpu(cuda):
+    """The entry point's step, three batches and a gc step, on the card and
+    on the CPU: equal deps, applied masks and final state; one K1 launch per
+    step on the card."""
+    fn, (st, bt) = entry(device=cuda)
+    _, (st_c, bt_c) = entry(device="cpu")
+    before = _kernels.LAUNCHES["deps_join"]
+    for step in range(3):
+        shift = torch.tensor([0, 0, 64 * step, 0, 0], dtype=torch.int32)
+        b_c = bt_c._replace(slots=bt_c.slots + 64 * step,
+                            txn_id=bt_c.txn_id + shift)
+        st, deps, applied = fn(st, cg.TxnBatch(*(x.to(cuda) for x in b_c)))
+        st_c, deps_c, applied_c = fn(st_c, b_c)
+        assert torch.equal(deps.cpu(), deps_c)
+        assert torch.equal(applied.cpu(), applied_c)
+    wm = torch.tensor([1, 0, 164, 0, 0], dtype=torch.int32)
+    st, st_c = cg.gc_step(st, wm.to(cuda)), cg.gc_step(st_c, wm)
+    got, want = gs.state_to_numpy(st), gs.state_to_numpy(st_c)
+    for name in want:
+        assert np.array_equal(got[name], want[name]), name
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["deps_join"] == before + 3
+
+
+def test_graph_ops_on_card_equal_edge_twins_and_cpu(cuda):
+    rng = np.random.default_rng(9)
+    t = 300
+    adj = (rng.random((t, t)) < 0.02).astype(np.int8)
+    active = rng.random(t) < 0.9
+    status = rng.choice([gs.STABLE, gs.APPLIED], t).astype(np.int8)
+    a, act, st = (torch.from_numpy(x).to(cuda) for x in (adj, active, status))
+    pairs = [
+        (dk.transitive_closure(a), lambda d: fk.transitive_closure_csr(adj, d)),
+        (dk.elide(a), lambda d: fk.elide_csr(adj, d)),
+        (dk.kahn_levels(a, act), lambda d: fk.kahn_levels_csr(adj, active, d)),
+        (dk.kahn_frontier(a, st, act),
+         lambda d: fk.kahn_frontier_csr(adj, status, active, d)),
+    ]
+    for dense, twin in pairs:
+        on_card = twin(cuda)
+        assert np.array_equal(dense.cpu().numpy(), on_card)
+        assert np.array_equal(on_card, twin("cpu"))
+    labels, level = dk.scc_condense(a, act)
+    for x, y, z in zip((labels, level), fk.scc_condense_csr(adj, active, cuda),
+                       fk.scc_condense_csr(adj, active, "cpu")):
+        assert np.array_equal(x.cpu().numpy(), y) and np.array_equal(y, z)
