@@ -19,14 +19,21 @@ same code; the device plane is rewritten:
                       ``csrc/consult.cu`` (K1 deps join, K2 max conflict);
 - ``models``          the conflict-graph model (``txn_step``: witness,
                       stabilise, one execution wave; its join is K1);
+- ``parallel``        the multi-device data plane over torch.distributed,
+                      one process per rank (``launch.run_ranks``): the
+                      sharded step, the store-sharded consult, the per-store
+                      frontier and the row-parallel closure (``mesh``), and
+                      the live-state dry run (``live_dryrun``, carried over);
 - ``entry``           ``entry(device)``: that step with example arguments;
+                      ``dryrun_multichip(n, device, backend)``: the sharded
+                      plane over n ranks;
 - ``device_service``  the persistent batched consult service over a
                       copy-on-write device index;
 - ``impl.tpu_resolver`` the device-tier resolver on torch tensors;
 - ``observe.device``/``observe.profiler`` share-of-peak against the H100.
 
-Not ported yet: ``parallel`` (multi-device) and the port's own tools and
-bench.
+Not ported yet: the port's own tools and bench (``tools/`` and
+``bench.py`` sit outside the reference package).
 """
 
 __version__ = "0.1.0"

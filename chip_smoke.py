@@ -34,7 +34,19 @@ Phases, one JSON line each; any failure exits non-zero:
             card against CPU bit for bit; closure/elide/SCC/Kahn at T=8,192
             dense against their edge twins, card against CPU; the edge
             kernels at T=1,048,576 (E ~ 8.4M), card against CPU;
-7. replay   a recorded burn replayed at T~32,768 through the host and
+7. mesh     the sharded data plane (parallel/, one process per rank over
+            torch.distributed): four ranks over gloo on the one card
+            (collectives staged through host memory; not a multi-card
+            figure) run 16 sharded steps at T=65,536, K=512, B=256 from the
+            graph phase's prefill, the store-sharded consult of four shape-A
+            stores, the sharded closure at T=8,192 and the per-store
+            frontier of four T=8,192 graphs; one rank over NCCL runs the
+            same steps; each result equals the single card's (txn_step,
+            consult, transitive_closure, kahn_frontier) exactly; then
+            dryrun_multichip(4) over gloo (>= 1,000 live queries, both
+            parity checks).  Per rank: step wall, device and collective ms,
+            peak memory, K1 launches (16 each);
+8. replay   a recorded burn replayed at T~32,768 through the host and
             device tiers with sampled parity against the cfk walk.
 
 Then the card's nvidia-smi line, one ``{"kernels": [...]}`` line and, last,
@@ -53,7 +65,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(os.getcwd(), "chiprun_out")
-PHASES = ("env", "build", "kernels", "service", "burn", "graph", "replay")
+PHASES = ("env", "build", "kernels", "service", "burn", "graph", "mesh",
+          "replay")
 
 # H100 SXM data sheet (NVIDIA), dense rates at the 700 W limit: HBM3 at
 # 3.35 TB/s; 67 TFLOP/s FP32 on the CUDA cores, the rate class the consult
@@ -666,14 +679,17 @@ GRAPH = dict(T=65536, K=512, B=256, steps=40, gc_every=8,
 
 def _prefill(np, rng, t, k, n):
     """A GraphState as numpy fields: slots [0, n) hold make_index's txns
-    (60% APPLIED, 5% INVALIDATED, 35% STABLE, with wait edges from later to
-    earlier STABLE txns), the rest are free."""
+    (60% APPLIED, 5% INVALIDATED, 35% STABLE, with n // 8 wait edges from
+    later to earlier STABLE txns), the rest are free.  ``adj`` is a ``Coo``
+    of those edges (dense it is 4 GiB at T = 65,536): ``_state_on`` builds
+    it on the device, a rank only its own rows."""
     from cassandra_accord_tpu_torch.ops import graph_state as gs
+    from cassandra_accord_tpu_torch.parallel.mesh import Coo
     key_inc, _live, lanes, ts, kind, _st, _act = make_index(np, rng, n, k, 2)
     f = {"key_inc": np.zeros((t, k), np.int8),
          "ts": np.zeros((t, 5), np.int32), "txn_id": np.zeros((t, 5), np.int32),
          "kind": np.zeros(t, np.int8), "status": np.zeros(t, np.int8),
-         "adj": np.zeros((t, t), np.int8), "active": np.zeros(t, bool)}
+         "active": np.zeros(t, bool)}
     f["key_inc"][:n], f["ts"][:n], f["txn_id"][:n] = key_inc, ts, lanes
     f["kind"][:n] = kind
     f["status"][:n] = rng.choice([gs.APPLIED, gs.INVALIDATED, gs.STABLE], n,
@@ -683,8 +699,22 @@ def _prefill(np, rng, t, k, n):
     i, j = rng.choice(stable, n // 8), rng.choice(stable, n // 8)
     later = lanes[i, 2] > lanes[j, 2]
     waiter, dep = np.where(later, i, j), np.where(later, j, i)
-    f["adj"][waiter[i != j], dep[i != j]] = 1
+    f["adj"] = Coo((waiter[i != j], dep[i != j]), (t, t))
     return f
+
+
+def _state_on(torch, fields, dev):
+    """``_prefill``'s fields as a GraphState on ``dev``, the adjacency
+    built there from its edges."""
+    import numpy as np
+    from cassandra_accord_tpu_torch.ops import graph_state as gs
+    coo = fields["adj"]
+    state = gs.state_from_numpy(dict(fields, adj=np.zeros((0, 0), np.int8)),
+                                dev)
+    adj = torch.zeros(coo.shape, dtype=torch.int8, device=state.ts.device)
+    adj[tuple(torch.from_numpy(np.asarray(x, np.int64)).to(adj.device)
+              for x in coo.index)] = 1
+    return state._replace(adj=adj)
 
 
 def _batch_fields(np, rng, t, k, b, hlc0, slots, n_valid):
@@ -744,12 +774,9 @@ class JoinCheck:
 def _device_edges(torch, adj, rows_per_chunk):
     """(src, dst) int32 of the [T, T] adjacency's nonzeros in row-major
     order, found on the card a block of rows at a time."""
-    srcs, dsts = [], []
-    for r0 in range(0, adj.shape[0], rows_per_chunk):
-        nz = torch.nonzero(adj[r0:r0 + rows_per_chunk])
-        srcs.append((nz[:, 0] + r0).to(torch.int32))
-        dsts.append(nz[:, 1].to(torch.int32))
-    return torch.cat(srcs), torch.cat(dsts)
+    from cassandra_accord_tpu_torch.parallel.launch import nonzero_rows
+    nz = nonzero_rows(adj, rows_per_chunk).to(torch.int32)
+    return nz[:, 0].contiguous(), nz[:, 1].contiguous()
 
 
 def _stats(xs):
@@ -803,7 +830,7 @@ def _graph_step(ctx):
     n0 = t // 2
     t0 = time.perf_counter()
     fields = _prefill(np, rng, t, k, n0)
-    state = gs.state_from_numpy(fields, dev)
+    state = _state_on(torch, fields, dev)
     del fields
     sync(ctx)
     prefill_s = time.perf_counter() - t0
@@ -928,7 +955,7 @@ def _graph_trajectory(ctx):
     n0 = t // 2
     fields = _prefill(np, rng, t, k, n0)
     devs = (ctx["dev"], "cpu")
-    states = {d: gs.state_from_numpy(fields, d) for d in devs}
+    states = {d: _state_on(torch, fields, d) for d in devs}
     applied = 0
     for step in range(GRAPH["traj_steps"]):
         n_valid = b if step % 4 else int(rng.integers(1, b))
@@ -1090,6 +1117,265 @@ def phase_graph(ctx):
     return out
 
 
+# the mesh phase's shapes: the graph phase's txn_step state and batches
+# over four ranks on the one card (16,384 rows each); four stores at
+# kernel shape A, one per rank; config 5's graph at T=8,192 for the closure
+# and four such graphs for the per-store frontier
+MESH = dict(T=65536, K=512, B=256, steps=16, ranks=4, ops_T=8192,
+            deps_per_txn=8, budget_s=120.0, timeout_s=300.0)
+
+
+def _mesh_step_inputs(np):
+    """The graph phase's prefill (32,768 slots) and 16 batches of all-valid
+    rows on distinct free slots, drawn across the free half."""
+    t, k, b, steps = MESH["T"], MESH["K"], MESH["B"], MESH["steps"]
+    rng = np.random.default_rng(23)
+    n0 = t // 2
+    fields = _prefill(np, rng, t, k, n0)
+    slots = rng.permutation(np.arange(n0, t))[:steps * b]
+    batches = [_batch_fields(np, rng, t, k, b, 1000 + n0 + s * b,
+                             slots[s * b:(s + 1) * b], b)
+               for s in range(steps)]
+    return fields, batches
+
+
+def _mesh_stores(np):
+    """Four stores at shape A (T=65,536, K=512, B=256, 2 keys per txn, half
+    on 8 hot keys), store-stacked as the consult takes them."""
+    t, k, b, n = MESH["T"], MESH["K"], MESH["B"], MESH["ranks"]
+    rng = np.random.default_rng(29)
+    cols = [[] for _ in range(10)]
+    for _ in range(n):
+        key_inc, live, lanes, ts, kind, status, active = make_index(
+            np, rng, t, k, 2)
+        rows, before, qkind = make_queries(np, rng, b, k, t, 2)
+        q = np.zeros((b, k), np.int8)
+        for r, c in enumerate(rows):
+            q[r, c] = 1
+        for col, x in zip(cols, (live, key_inc, ts, lanes, kind, status,
+                                 active, q, before, qkind)):
+            col.append(x)
+    return tuple(np.stack(c) for c in cols)
+
+
+def _mesh_graphs(np):
+    """Config 5's bench graph at T=8,192 (as the graph phase draws it) for
+    the closure, and four such graphs, as edges, for the frontier."""
+    from cassandra_accord_tpu_torch.ops import graph_state as gs
+    from cassandra_accord_tpu_torch.parallel.mesh import Coo
+    t, n = MESH["ops_T"], MESH["ranks"]
+    rng = np.random.default_rng(9)
+    adj = (rng.random((t, t)) < (MESH["deps_per_txn"] / t)).astype(np.int8)
+    np.fill_diagonal(adj, 0)
+    rng = np.random.default_rng(31)
+    e = MESH["deps_per_txn"] * t
+    store = np.repeat(np.arange(n), e)
+    src = rng.integers(0, t, n * e)
+    dst = rng.integers(0, t, n * e)
+    keep = src != dst
+    coo = Coo((store[keep], src[keep], dst[keep]), (n, t, t))
+    status = np.where(rng.random((n, t)) < 0.3, gs.APPLIED,
+                      gs.STABLE).astype(np.int8)
+    active = rng.random((n, t)) < 0.99
+    return adj, coo, status, active
+
+
+def _rank_numbers(np, results, key):
+    """Per rank: medians of the steps' wall, device and collective ms, the
+    steps' K1 launches and peak bytes."""
+    out = []
+    for r in results:
+        v = r.value[key] if key is not None else r.value
+        times = v["times"]
+        med = {m: float(np.median([x[m] for x in times]))
+               if times[0][m] is not None else None
+               for m in ("wall_ms", "device_ms", "collective_ms")}
+        out.append(dict(med, k1_launches=sum(
+            x["launches"]["deps_join"] for x in times),
+            peak_bytes=v["peak_bytes"]))
+    return out
+
+
+def _check_mesh_steps(np, torch, results, want, final, label):
+    """Each rank's per-step conflict_max and applied against the single
+    card's, and its final local state against its rows of the single
+    card's final state (``final``: numpy fields, adj as [E, 2] + values)."""
+    rows = final["key_inc"].shape[0] // len(results)
+    idx, vals = [], []
+    for r, res in enumerate(results):
+        v = res.value[0] if isinstance(res.value, list) else res.value
+        for i, (cmax, applied) in enumerate(want):
+            need(np.array_equal(v["conflict_max"][i], cmax),
+                 f"{label}: rank {r} step {i} conflict_max differs from "
+                 "the single card's")
+            need(np.array_equal(v["applied"][i], applied),
+                 f"{label}: rank {r} step {i} applied differs")
+        st = v["state"]
+        for name in ("key_inc", "ts", "txn_id", "kind", "status", "active"):
+            need(np.array_equal(st[name],
+                                final[name][r * rows:(r + 1) * rows]),
+                 f"{label}: rank {r} final {name} differs")
+        idx.append(st["adj_index"] + np.array([r * rows, 0]))
+        vals.append(st["adj_values"])
+    need(np.array_equal(np.concatenate(idx), final["adj_index"])
+         and np.array_equal(np.concatenate(vals), final["adj_values"]),
+         f"{label}: final adjacency differs")
+
+
+def phase_mesh(ctx):
+    """The sharded data plane (parallel/) in four ranks over gloo on the
+    one card, and in one rank over NCCL, each held against the single
+    card; then dryrun_multichip(4) over gloo."""
+    import numpy as np
+    torch = ctx["torch"]
+    from cassandra_accord_tpu_torch.entry import dryrun_multichip
+    from cassandra_accord_tpu_torch.models import conflict_graph as cg
+    from cassandra_accord_tpu_torch.ops import _kernels as K
+    from cassandra_accord_tpu_torch.ops import deps_kernels as dk
+    from cassandra_accord_tpu_torch.parallel import launch
+    from cassandra_accord_tpu_torch.parallel import live_dryrun as ld
+    t0 = time.perf_counter()
+    n, dev = MESH["ranks"], ctx["dev"]
+    fields, batches = _mesh_step_inputs(np)
+    stores = _mesh_stores(np)
+    adj8k, coo, fstatus, factive = _mesh_graphs(np)
+    inputs_s = time.perf_counter() - t0
+
+    # ---- four ranks over gloo on the card: every rank program -----------
+    calls = [(launch.steps_rank, (fields, batches)),
+             (launch.store_consult_rank, (stores,)),
+             (launch.closure_rank, (adj8k,)),
+             (launch.frontier_rank, (coo, fstatus, factive))]
+    w0 = time.perf_counter()
+    gloo = launch.run_ranks(n, launch.sequence, (calls,), device=dev,
+                            backend="gloo", timeout_s=MESH["timeout_s"])
+    gloo_s = time.perf_counter() - w0
+    # ---- one rank over NCCL: the same steps ------------------------------
+    w0 = time.perf_counter()
+    nccl = launch.run_ranks(1, launch.steps_rank, (fields, batches),
+                            device=dev, backend="nccl",
+                            timeout_s=MESH["timeout_s"])
+    nccl_s = time.perf_counter() - w0
+
+    # ---- the single card: txn_step on the same state and batches ---------
+    state = _state_on(torch, fields, dev)
+    want = []
+    with JoinCheck(torch, K) as chk:
+        for f in batches:
+            batch = cg.TxnBatch(**{k: torch.from_numpy(v).to(dev)
+                                   for k, v in f.items()})
+            ts_pre = state.ts.clone()
+            state, deps, applied = cg.txn_step(state, batch)
+            want.append((dk.max_conflict_ts(ts_pre, deps)[0].cpu().numpy(),
+                         applied.cpu().numpy()))
+            chk.verify()
+    nz = launch.nonzero_rows(state.adj)
+    final = {name: getattr(state, name).cpu().numpy()
+             for name in ("key_inc", "ts", "txn_id", "kind", "status",
+                          "active")}
+    final["adj_index"] = nz.cpu().numpy()
+    final["adj_values"] = state.adj[nz[:, 0], nz[:, 1]].cpu().numpy()
+    del state, deps, nz
+    _check_mesh_steps(np, torch, gloo, want, final, "gloo x4")
+    _check_mesh_steps(np, torch, nccl, want, final, "nccl x1")
+    applied_total = int(sum(a.sum() for _, a in want))
+    need(applied_total > 0, "the mesh steps applied nothing")
+    rows = MESH["T"] // n
+    ctx["mesh_join"] = (
+        (dk.incidence_T(torch.from_numpy(fields["key_inc"][:rows]).to(dev)),
+         torch.from_numpy(fields["txn_id"][:rows]).to(dev),
+         torch.from_numpy(fields["kind"][:rows]).to(dev),
+         torch.from_numpy(fields["status"][:rows]).to(dev),
+         torch.from_numpy(fields["active"][:rows]).to(dev),
+         *dk.query_csr(torch.from_numpy(batches[0]["key_inc"]).to(dev)),
+         torch.from_numpy(batches[0]["txn_id"]).to(dev),
+         torch.from_numpy(batches[0]["kind"]).to(dev)), {})
+
+    # ---- the store consult: each store on one card, and across stores ----
+    lanes = []
+    for s in range(n):
+        d1, m1 = dk.consult(*(torch.from_numpy(np.ascontiguousarray(x[s]))
+                              .to(dev) for x in stores))
+        res = gloo[s].value[1]
+        need(np.array_equal(res["deps"][0], d1.cpu().numpy()),
+             f"store {s}: sharded deps differ from the single-store consult")
+        need(np.array_equal(res["max_lanes"][0], m1.cpu().numpy()),
+             f"store {s}: sharded max differs from the single-store consult")
+        lanes.append(m1.cpu().numpy())
+    expect = ld.host_lex_max(np.stack(lanes).transpose(1, 0, 2),
+                             np.ones((MESH["B"], n), dtype=bool))
+    for r in gloo:
+        need(np.array_equal(r.value[1]["global_max"], expect),
+             "cross-store max differs from host_lex_max")
+    s0 = tuple(torch.from_numpy(np.ascontiguousarray(x[0])).to(dev)
+               for x in stores)
+    offsets, cols = dk.query_csr(s0[7])
+    ctx["mesh_consult"] = (
+        (dk.incidence_T(s0[0]), s0[3], s0[4], s0[5], s0[6], offsets, cols,
+         s0[8], s0[9]),
+        (dk.incidence_T(s0[1]), s0[2], s0[3], s0[6], offsets, cols))
+
+    # ---- closure and frontier against one card ---------------------------
+    reach = np.concatenate([r.value[2]["reach"] for r in gloo])
+    need(np.array_equal(reach, dk.transitive_closure(
+        torch.from_numpy(adj8k).to(dev)).cpu().numpy()),
+         "sharded closure differs from the single card's")
+    ready = np.concatenate([r.value[3]["ready"] for r in gloo])
+    for s in range(n):
+        a = torch.zeros(coo.shape[1:], dtype=torch.int8, device=dev)
+        m = coo.index[0] == s
+        a[torch.from_numpy(coo.index[1][m]).to(dev),
+          torch.from_numpy(coo.index[2][m]).to(dev)] = 1
+        want_r = dk.kahn_frontier(a, torch.from_numpy(fstatus[s]).to(dev),
+                                  torch.from_numpy(factive[s]).to(dev))
+        need(np.array_equal(ready[s], want_r.cpu().numpy()),
+             f"store {s}: sharded frontier differs from the single card's")
+    del a
+
+    # ---- dryrun_multichip(4) over gloo on the card -----------------------
+    w0 = time.perf_counter()
+    dry = dryrun_multichip(n, device=dev, backend="gloo",
+                           timeout_s=MESH["timeout_s"])
+    dry_s = time.perf_counter() - w0
+    need(dry["queries"] >= 1000, f"dryrun replayed {dry['queries']} queries")
+
+    launches = {name: 0 for name in K.LAUNCHES}
+    for r in list(gloo) + list(nccl):
+        for name, v in r.launches.items():
+            launches[name] += v
+    for lw in dry["launches"]:
+        for name, v in lw.items():
+            launches[name] += v
+    need(all(v > 0 for v in launches.values()),
+         f"the mesh path did not launch every kernel: {launches}")
+    ctx["mesh_launches"] = launches
+    seconds = time.perf_counter() - t0
+    need(seconds <= MESH["budget_s"],
+         f"mesh phase took {seconds:.1f} s > {MESH['budget_s']} s")
+    gloo_steps = _rank_numbers(np, gloo, 0)
+    need(all(x["k1_launches"] == MESH["steps"] for x in gloo_steps),
+         f"K1 launches per rank in the steps: {gloo_steps}")
+    return {
+        "note": "four ranks on ONE card, collectives staged through host "
+                "memory (gloo); not a multi-card figure",
+        "card": ctx.get("smi_line"),
+        "T": MESH["T"], "K": MESH["K"], "B": MESH["B"], "steps": MESH["steps"],
+        "ranks": n, "rows_per_rank": rows,
+        "applied": applied_total, "k1_checked_single": chk.checked,
+        "inputs_s": inputs_s, "gloo_spawn_s": gloo_s, "nccl_spawn_s": nccl_s,
+        "dryrun_s": dry_s,
+        "gloo_x4": {"backend": "gloo", "per_rank_step": gloo_steps,
+                    "launches_per_rank": [r.launches for r in gloo],
+                    "store_consult": [r.value[1]["times"] for r in gloo],
+                    "closure": [r.value[2]["times"] for r in gloo],
+                    "frontier": [r.value[3]["times"] for r in gloo]},
+        "nccl_x1": {"backend": "nccl",
+                    "per_rank_step": _rank_numbers(np, nccl, None),
+                    "launches_per_rank": [r.launches for r in nccl]},
+        "dryrun": dry, "equal_to_single_card": True,
+        "launches": launches}
+
+
 def phase_replay(ctx):
     from cassandra_accord_tpu_torch.harness.consult_trace import (
         record_burn, scaled_replay)
@@ -1140,10 +1426,11 @@ ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
 
 def kernels_line(ctx):
     """One entry per kernel: the main path's (the burn's) launch count and
-    the numbers at the largest call it made, and the graph path's launch
-    count; every other measured shape (the full-size synthetic ones, the
-    replay's largest call, the full-width txn_step's K1 call) under
-    ``shapes``, none of them launched on the main path."""
+    the numbers at the largest call it made, and the graph and mesh paths'
+    launch counts (the mesh's summed over its ranks); every other measured
+    shape (the full-size synthetic ones, the replay's largest call, the
+    full-width txn_step's K1 call, a mesh rank's calls) under ``shapes``,
+    none of them launched on the main path."""
     for key, path in (("burn_checker", "burn"), ("replay_checker", "replay")):
         chk = ctx.get(key)
         if chk is not None:
@@ -1153,6 +1440,17 @@ def kernels_line(ctx):
         args, kwargs = ctx["graph_join"]
         measure(ctx, "deps_join", "graph_step_T{T}_K{K}_B{B}".format(**GRAPH),
                 args, kwargs, 20, "graph")
+    if ctx.get("mesh_join") is not None:
+        # a rank's join in the sharded step (rank 0, first batch), and
+        # store 0's consult in the store-sharded consult
+        args, kwargs = ctx["mesh_join"]
+        label = "mesh_step_rank_T{}_K{K}_B{B}".format(
+            MESH["T"] // MESH["ranks"], **MESH)
+        measure(ctx, "deps_join", label, args, kwargs, 20, "mesh")
+        jargs, margs = ctx["mesh_consult"]
+        label = "mesh_store_T{T}_K{K}_B{B}".format(**MESH)
+        measure(ctx, "deps_join", label, jargs, {}, 20, "mesh")
+        measure(ctx, "max_conflict", label, margs, {}, 20, "mesh")
     entries = []
     for name in REPLACES:
         rows = [r for r in ctx["rows"] if r["name"] == name]
@@ -1163,7 +1461,8 @@ def kernels_line(ctx):
              "replaces": REPLACES[name],
              "launches": ctx.get("burn_launches", {}).get(name, 0),
              "replay_launches": ctx.get("replay_launches", {}).get(name, 0),
-             "graph_launches": ctx.get("graph_launches", {}).get(name, 0)}
+             "graph_launches": ctx.get("graph_launches", {}).get(name, 0),
+             "mesh_launches": ctx.get("mesh_launches", {}).get(name, 0)}
         e.update({k: head[k] for k in ROW_KEYS})
         e["shapes"] = [dict({k: r[k] for k in ROW_KEYS}, main_path_launches=0)
                        for r in rows if r is not head]
@@ -1204,7 +1503,7 @@ def main(argv=None) -> int:
                     "max_conflict": _kernels.max_conflict}}
     fns = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
            "service": phase_service, "burn": phase_burn, "graph": phase_graph,
-           "replay": phase_replay}
+           "mesh": phase_mesh, "replay": phase_replay}
     t_all = time.perf_counter()
     for name in PHASES:
         if name not in phases:

@@ -221,3 +221,67 @@ def test_graph_ops_on_card_equal_edge_twins_and_cpu(cuda):
     for x, y, z in zip((labels, level), fk.scc_condense_csr(adj, active, cuda),
                        fk.scc_condense_csr(adj, active, "cpu")):
         assert np.array_equal(x.cpu().numpy(), y) and np.array_equal(y, z)
+
+
+def test_two_gloo_ranks_on_the_card_equal_single_card(cuda):
+    """The sharded step (three batches) and the store-sharded consult (one
+    store per rank) in two ranks over gloo on the one card: equal to the
+    single-card txn_step and consult, through K1/K2 in each rank."""
+    from cassandra_accord_tpu_torch.parallel import launch
+    from cassandra_accord_tpu_torch.parallel import live_dryrun as ld
+    fn, (st, bt) = entry(device=cuda)
+    state_np = {k: v.copy() for k, v in gs.state_to_numpy(st).items()}
+    batches, want = [], []
+    for step in range(3):
+        shift = torch.tensor([0, 0, 64 * step, 0, 0], dtype=torch.int32,
+                             device=cuda)
+        b = bt._replace(slots=bt.slots + 64 * step, txn_id=bt.txn_id + shift)
+        batches.append({k: v.cpu().numpy() for k, v in b._asdict().items()})
+        ts_pre = st.ts.clone()
+        st, deps, applied = fn(st, b)
+        want.append((dk.max_conflict_ts(ts_pre, deps)[0].cpu().numpy(),
+                     applied.cpu().numpy()))
+    rng = np.random.default_rng(3)
+    t, k, b = 256, 32, 16
+    stores = ((rng.random((2, t, k)) < 0.1).astype(np.int8),
+              (rng.random((2, t, k)) < 0.1).astype(np.int8),
+              rng.integers(0, 99, (2, t, 5)).astype(np.int32),
+              rng.integers(0, 99, (2, t, 5)).astype(np.int32),
+              rng.integers(0, 6, (2, t)).astype(np.int8),
+              rng.integers(0, 7, (2, t)).astype(np.int8),
+              rng.random((2, t)) < 0.9,
+              (rng.random((2, b, k)) < 0.1).astype(np.int8),
+              rng.integers(0, 99, (2, b, 5)).astype(np.int32),
+              rng.integers(0, 6, (2, b)).astype(np.int8))
+    calls = [(launch.steps_rank, (state_np, batches)),
+             (launch.store_consult_rank, (stores,))]
+    res = launch.run_ranks(2, launch.sequence, (calls,), device=cuda,
+                           backend="gloo", timeout_s=120)
+    for r in res:
+        steps = r.value[0]
+        for i, (cmax, applied) in enumerate(want):
+            assert np.array_equal(steps["conflict_max"][i], cmax)
+            assert np.array_equal(steps["applied"][i], applied)
+        assert r.launches == {"deps_join": 4, "max_conflict": 1}
+    full = gs.state_to_numpy(st)
+    rows = full["key_inc"].shape[0] // 2
+    for i, r in enumerate(res):
+        local = r.value[0]["state"]
+        for name in full:
+            if name == "adj":
+                got = np.zeros(local["adj_shape"], np.int8)
+                got[tuple(local["adj_index"].T)] = local["adj_values"]
+            else:
+                got = local[name]
+            assert np.array_equal(got, full[name][i * rows:(i + 1) * rows]), \
+                name
+    singles = [dk.consult(*(torch.from_numpy(x[s]).to(cuda) for x in stores))
+               for s in range(2)]
+    lanes = np.stack([m.cpu().numpy() for _, m in singles])
+    for s, r in enumerate(res):
+        cons = r.value[1]
+        assert np.array_equal(cons["deps"][0], singles[s][0].cpu().numpy())
+        assert np.array_equal(cons["max_lanes"][0], lanes[s])
+        assert np.array_equal(cons["global_max"], res[0].value[1]["global_max"])
+    best = ld.host_lex_max(lanes.transpose(1, 0, 2), np.ones((b, 2), bool))
+    assert np.array_equal(res[0].value[1]["global_max"], best)
