@@ -26,7 +26,9 @@
 // [K, T] uint8 index: nnz*T bytes instead of K*T, and no tensor cores.  The
 // predicate is evaluated in the epilogue from the lane, kind, status and
 // active vectors and a 6x6 witness table passed as a 64-bit mask; nothing of
-// size [B, T] is built except the output.
+// size [B, T] is built except the output.  A column in [-K, -1] names
+// column c + K and any other column outside [0, K) is dropped, as the
+// reference's densify (.at[row_ids, flat_cols].add) reads them.
 //
 // Geometry.  A thread owns 8 consecutive slots for the incidence (one
 // 8-byte word per key row) and, for the slot data (lanes, codes), the 8
@@ -221,7 +223,8 @@ __device__ __forceinline__ uint64_t rows_share(
     if (c0 != lo) __syncthreads();             // the previous chunk is consumed
     for (int j = c0 + tid; j < c1; j += blockDim.x) {
       const int c = __ldg(cols + j);
-      st.cols[j - c0] = (c >= 0 && c < K) ? c : -1;
+      const int w = c < 0 ? c + K : c;           // wrapped once, as in JAX
+      st.cols[j - c0] = (w >= 0 && w < K) ? w : -1;
     }
     __syncthreads();
     // rows in flight: the first kLead keys of every row, all loads issued

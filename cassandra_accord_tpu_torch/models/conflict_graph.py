@@ -53,10 +53,12 @@ class TxnBatch(NamedTuple):
 def _scatter_rows(state: gs.GraphState, slots: torch.Tensor,
                   valid: torch.Tensor):
     """(rows, targets): the batch rows whose write the reference keeps and
-    that change the state (valid winners), and their slots."""
+    that change the state (valid winners), and their slots.  Padding rows
+    take part at slot T-1; a valid row's slot is wrapped or dropped as the
+    reference's scatter does (``graph_state.wrap_index``/``last_rows``)."""
     valid = valid.to(torch.bool)
     t = state.txn_slots
-    safe = torch.where(valid, slots.long(), t - 1)
+    safe = torch.where(valid, gs.wrap_index(slots.long(), t), t - 1)
     rows = gs.last_rows(safe, t, keep=valid)
     return rows, safe[rows]
 

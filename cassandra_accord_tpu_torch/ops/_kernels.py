@@ -19,8 +19,10 @@ kernel launches, one per wrapper call that reached the card.
 
 Layout: the index incidence is pre-transposed ``[K, T]`` uint8 (0/1), the
 query a CSR pair ``offsets [B+1]`` / ``cols [N]`` int32 (duplicates legal,
-entries past ``offsets[B]`` ignored), lanes ``[*, 5]`` int32, kinds and
-statuses int8, ``active`` bool.
+entries past ``offsets[B]`` ignored; a column in [-K, -1] names column + K
+and the others outside [0, K) are dropped, in the kernels and the plain
+versions alike, as the reference's densify), lanes ``[*, 5]`` int32, kinds
+and statuses int8, ``active`` bool.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .graph_state import INVALIDATED, TS_LANES, ts_less
+from .graph_state import INVALIDATED, TS_LANES, ts_less, wrap_index
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE = PACKAGE_DIR / "csrc" / "consult.cu"
@@ -151,13 +153,14 @@ def _kind_index(kind: torch.Tensor) -> torch.Tensor:
 
 def dense_query(offsets: torch.Tensor, cols: torch.Tensor, k: int) -> torch.Tensor:
     """The CSR query as dense [B, K] int32 counts.  Duplicate columns add up
-    (int32: an int8 or uint8 sum would wrap to 0 at 256); out-of-range
-    columns are dropped."""
+    (int32: an int8 or uint8 sum would wrap to 0 at 256); a column in
+    [-k, -1] names column + k and the others outside [0, k) are dropped, as
+    in the reference's densify (``.at[row_ids, flat_cols].add``)."""
     b = offsets.numel() - 1
     n = int(offsets[-1]) if b >= 0 else 0
     rows = torch.repeat_interleave(
         torch.arange(b, device=cols.device), (offsets[1:] - offsets[:-1]).long())
-    c = cols[:n].long()
+    c = wrap_index(cols[:n].long(), k)
     keep = (c >= 0) & (c < k)
     q = torch.zeros((b, k), dtype=torch.int32, device=cols.device)
     q.index_put_((rows[keep], c[keep]),

@@ -24,6 +24,10 @@ were; fields it does not change are shared with the input, as the
 reference's ``_replace`` shares its buffers.  Scatters never see a duplicate
 index (``last_rows``): torch leaves the winner of duplicate writes undefined
 on CUDA, and the reference's CPU backend keeps the last row in batch order.
+Nor do they see an index out of range, which torch refuses (a device-side
+assert on CUDA): a slot in [-T, -1] names slot + T and any other slot outside
+[0, T) writes nothing, as the reference's ``.at[slots].set`` does
+(``wrap_index``, then ``last_rows``).
 """
 from __future__ import annotations
 
@@ -137,18 +141,30 @@ def ts_next(ts: torch.Tensor, node_id) -> torch.Tensor:
     ], dim=-1)
 
 
+def wrap_index(index: torch.Tensor, n: int) -> torch.Tensor:
+    """``index`` as JAX reads a scatter index into an axis of size ``n``: a
+    value in [-n, -1] names value + n (wrapped once); any other value
+    outside [0, n) is left as it is, for the consumer to drop (``last_rows``
+    here; ``_kernels.dense_query``, whose CUDA kernels apply the same rule
+    as they stage the query's columns)."""
+    return torch.where(index < 0, index + n, index)
+
+
 def last_rows(slots: torch.Tensor, t: int,
               keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Indices (int64, ascending) of the rows of ``slots`` [B] that are the
     last in batch order to name their slot — the row whose write the
     reference's scatter keeps — restricted to rows where ``keep`` holds.
-    Writing only these rows gives the reference's answer with no duplicate
-    index in the scatter."""
+    Rows whose slot lies outside [0, t) win nothing: the reference's scatter
+    drops them.  Writing only these rows gives the reference's answer with
+    no duplicate or out-of-range index in the scatter."""
     s = slots.long()
+    inside = (s >= 0) & (s < t)
+    s = torch.where(inside, s, t)           # the drops share one spare slot
     order = torch.arange(s.numel(), device=s.device)
-    last = torch.full((t,), -1, dtype=torch.long, device=s.device) \
+    last = torch.full((t + 1,), -1, dtype=torch.long, device=s.device) \
         .scatter_reduce(0, s, order, "amax", include_self=True)
-    win = last[s] == order
+    win = inside & (last[s] == order)
     if keep is not None:
         win &= keep
     return torch.nonzero(win).squeeze(1)
@@ -175,8 +191,9 @@ def insert_batch(state: GraphState,
                  ) -> GraphState:
     """Scatter a batch of newly witnessed transactions into their slots
     (host-assigned).  A slot named twice takes the batch's last row."""
-    rows = last_rows(slots, state.txn_slots)
-    idx = slots.long()[rows]
+    s = wrap_index(slots.long(), state.txn_slots)
+    rows = last_rows(s, state.txn_slots)
+    idx = s[rows]
     return GraphState(
         key_inc=put_rows(state.key_inc, idx, key_inc[rows]),
         ts=put_rows(state.ts, idx, ts[rows]),
@@ -190,15 +207,16 @@ def insert_batch(state: GraphState,
 
 def set_status_batch(state: GraphState, slots: torch.Tensor,
                      status: torch.Tensor) -> GraphState:
-    rows = last_rows(slots, state.txn_slots)
-    return state._replace(
-        status=put_rows(state.status, slots.long()[rows], status[rows]))
+    s = wrap_index(slots.long(), state.txn_slots)
+    rows = last_rows(s, state.txn_slots)
+    return state._replace(status=put_rows(state.status, s[rows], status[rows]))
 
 
 def set_execute_at_batch(state: GraphState, slots: torch.Tensor,
                          ts: torch.Tensor) -> GraphState:
-    rows = last_rows(slots, state.txn_slots)
-    return state._replace(ts=put_rows(state.ts, slots.long()[rows], ts[rows]))
+    s = wrap_index(slots.long(), state.txn_slots)
+    rows = last_rows(s, state.txn_slots)
+    return state._replace(ts=put_rows(state.ts, s[rows], ts[rows]))
 
 
 def _mask_cols(adj: torch.Tensor, keep_i8: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,9 @@ Phases, one JSON line each; any failure exits non-zero:
 2. build    nvcc of csrc/consult.cu for sm_90a, with its time;
 3. kernels  K1 (deps_join) and K2 (max_conflict) at full size against
             their plain torch versions, exactly (the eager answer and the
-            graph replays' answers); device time per launch
+            graph replays' answers), and on rows with columns -1, -K, K and
+            -K-1 (wrapped once or dropped, as the reference's densify does);
+            device time per launch
             from a CUDA graph of back-to-back launches between one event
             pair (cold and warm L2), the wrapper's host cost apart, beside
             the plain version, one torch.matmul of the same join and the
@@ -27,14 +29,26 @@ Phases, one JSON line each; any failure exits non-zero:
             trace must equal the same burn on the host backend.  The same
             burn through the resolver's one-shot device path (no service)
             must equal it too;
-6. graph    the conflict-graph model: txn_step at T=65,536, K=512,
+6. cli      the burn CLI's fault matrix (``harness.burn.main``, in
+            process) on seeds 0 and 1 at 120 ops with --audit=strict, and
+            seed 1 again with crash-restarts every 3 sim-s, the device tier
+            forced through the environment the CLI reads: each run on the
+            card's backend (launches counted around the run,
+            every tenth call checked against the plain version) and on the
+            host backend, with equal outcomes and audit verdicts and
+            identical causal DAGs (tools_torch/explain.py); then the port's
+            gate (tools_torch/perfgate.py) under the same environment: its
+            smoke's sim block equals the host resolver's and the gate
+            passes against BASELINE.json;
+7. graph    the conflict-graph model: txn_step at T=65,536, K=512,
             B=256 with a gc step every 8 (K1 launches counted, each K1
             answer held against its plain version, step ms, peak memory and
             the step's floor); a T=4,096 trajectory with padded batches,
-            card against CPU bit for bit; closure/elide/SCC/Kahn at T=8,192
-            dense against their edge twins, card against CPU; the edge
-            kernels at T=1,048,576 (E ~ 8.4M), card against CPU;
-7. mesh     the sharded data plane (parallel/, one process per rank over
+            card against CPU bit for bit; insert_batch and txn_step with
+            slots T, -1 and -T-1, card against CPU; closure/elide/SCC/Kahn
+            at T=8,192 dense against their edge twins, card against CPU;
+            the edge kernels at T=1,048,576 (E ~ 8.4M), card against CPU;
+8. mesh     the sharded data plane (parallel/, one process per rank over
             torch.distributed): four ranks over gloo on the one card
             (collectives staged through host memory; not a multi-card
             figure) run 16 sharded steps at T=65,536, K=512, B=256 from the
@@ -46,7 +60,7 @@ Phases, one JSON line each; any failure exits non-zero:
             dryrun_multichip(4) over gloo (>= 1,000 live queries, both
             parity checks).  Per rank: step wall, device and collective ms,
             peak memory, K1 launches (16 each);
-8. replay   a recorded burn replayed at T~32,768 through the host and
+9. replay   a recorded burn replayed at T~32,768 through the host and
             device tiers with sampled parity against the cfk walk.
 
 Then the card's nvidia-smi line, one ``{"kernels": [...]}`` line and, last,
@@ -56,6 +70,9 @@ that does not hold the port, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import hashlib
+import io
 import json
 import os
 import shutil
@@ -65,8 +82,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(os.getcwd(), "chiprun_out")
-PHASES = ("env", "build", "kernels", "service", "burn", "graph", "mesh",
-          "replay")
+PHASES = ("env", "build", "kernels", "service", "burn", "cli", "graph",
+          "mesh", "replay")
 
 # H100 SXM data sheet (NVIDIA), dense rates at the 700 W limit: HBM3 at
 # 3.35 TB/s; 67 TFLOP/s FP32 on the CUDA cores, the rate class the consult
@@ -515,13 +532,53 @@ def phase_kernels(ctx):
     # a row of 5,000 columns (duplicates), wider than a block's CSR stage
     rows += _kernel_case(ctx, "wide_T65536_K512_B9_5000cols", 65536, 512, 9,
                          2, 5, packed=(False,), wide=5000)
-    return {"cases": [dict({k: r[k] for k in ("name", "shape", "max_abs_err",
-                                              "ms", "warm_ms",
-                                              "method_floor_ms",
-                                              "wrapper_host_us", "plain_ms",
-                                              "library_ms", "bound_ms",
-                                              "bound_by")},
+    keys = ("name", "shape", "max_abs_err", "ms", "warm_ms",
+            "method_floor_ms", "wrapper_host_us", "plain_ms", "library_ms",
+            "bound_ms", "bound_by")
+    return {"negative_columns": _kernel_columns(ctx),
+            "cases": [dict({k: r[k] for k in keys},
                            bound_us=r["bound_ms"] * 1e3) for r in rows]}
+
+
+def _kernel_columns(ctx):
+    """K1 (bool and bit-packed) and K2 on rows whose columns are -1, -K, K
+    and -K-1: the reference's densify names column c + K for c in [-K, -1]
+    and drops the rest, and so must the kernels and their plain versions,
+    which must agree exactly."""
+    import numpy as np
+    torch = ctx["torch"]
+    from cassandra_accord_tpu_torch.ops import _kernels as K
+    t, k = 2056, 64                          # two tiles; T % 8 == 0
+    rng = np.random.default_rng(29)
+    key_inc, live, lanes, ts, kind, status, active = make_index(
+        np, rng, t, k, 2)
+    rows = [[-1, -k, k], [-k - 1, 3], [-1], [2, -k], [k, -k - 1]]
+    _q, before, qkind = make_queries(np, rng, len(rows), k, t, 2)
+    offsets, cols = to_csr(np, rows)
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(ctx["dev"])
+    jargs = (up((live != 0).T.astype(np.uint8)), up(lanes), up(kind),
+             up(status), up(active), up(offsets), up(cols), up(before),
+             up(qkind))
+    margs = (up((key_inc != 0).T.astype(np.uint8)), up(ts), up(lanes),
+             up(active), up(offsets), up(cols))
+    got = {"deps_join": ctx["real"]["deps_join"](*jargs),
+           "deps_join_packed": ctx["real"]["deps_join"](*jargs, packed=True),
+           "max_conflict": ctx["real"]["max_conflict"](*margs)}
+    want = {"deps_join": K.deps_join_plain(*jargs),
+            "deps_join_packed": K.deps_join_plain(*jargs, packed=True),
+            "max_conflict": K.max_conflict_plain(*margs)}
+    sync(ctx)
+    errs = {n: max_abs_err(torch, got[n], want[n]) for n in got}
+    need(all(e == 0 for e in errs.values()),
+         f"negative columns: kernels differ from their plain versions {errs}")
+    # the wrapped columns name real keys; K and -K-1 alone name none
+    need(bool(got["max_conflict"][2].any()) and bool(got["deps_join"][0].any()),
+         "negative columns: the wrapped rows found no conflict")
+    need(not bool(got["max_conflict"][4].any()),
+         "negative columns: a row of dropped columns found a conflict")
+    return {"T": t, "K": k, "rows": rows, "max_abs_err": errs}
 
 
 def bare_service_resolver(cfg_cls, resolver_cls, key_inc, lanes, kind,
@@ -666,6 +723,222 @@ def phase_burn(ctx):
                trace_equal_to_host=True, oneshot_trace_equal_to_host=True,
                verifier="pass")
     return out
+
+
+# the cli phase: the burn CLI's full fault matrix (chaos, churn,
+# crash-restart, pause, disk stall, journal corruption; verify skill item
+# 6) at 120 ops, the device tier forced through the environment the CLI
+# reads (config.py); each run on the card's backend and on the host
+# backend.  Seeds 0 and 1 on the default cadences inject no crash in 120
+# ops (a restart every 20 sim-s, a run lasts 7-8), so seed 1 runs once
+# more with the cadences the CLI also reads from the environment cut to
+# a restart every 3 sim-s, a pause or a disk stall every 4: its nodes
+# crash, restart and rebuild their stores from the journal
+RESTARTS_ENV = dict(ACCORD_RESTART_INTERVAL="3", ACCORD_PAUSE_INTERVAL="4",
+                    ACCORD_DISK_STALL_INTERVAL="4")
+CLI = dict(runs=(("0", 0, {}), ("1", 1, {}), ("1_restarts", 1, RESTARTS_ENV)),
+           ops=120, budget_s=180.0)
+CLI_ENV = dict(ACCORD_RESOLVER="tpu", ACCORD_TPU_TIER="device",
+               ACCORD_TPU_WALK_MAX="0", ACCORD_TPU_WALK_WIDTH="0",
+               ACCORD_TPU_SERVICE="on")
+CLI_OUTCOME = ("status", "rf", "resolved", "ok", "recovered", "nacked",
+               "lost", "failed", "shed", "sim_ms", "faults")
+
+
+@contextlib.contextmanager
+def _environ(**kv):
+    """``os.environ`` with ``kv`` set, restored on the way out."""
+    old = {k: os.environ.get(k) for k in kv}
+    os.environ.update(kv)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _file_digest(path):
+    if not os.path.exists(path):
+        return None
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+@contextlib.contextmanager
+def _resolver_calls(names=("_grow", "_rebuild")):
+    """Counts calls of the device resolver's index growth and rebuild while
+    installed (the paths a restart or a full index takes)."""
+    from cassandra_accord_tpu_torch.impl.tpu_resolver import TpuDepsResolver
+    counts = dict.fromkeys(names, 0)
+    real = {n: getattr(TpuDepsResolver, n) for n in names}
+
+    def counted(name):
+        def call(self, *args, **kwargs):
+            counts[name] += 1
+            return real[name](self, *args, **kwargs)
+        return call
+    for n in names:
+        setattr(TpuDepsResolver, n, counted(n))
+    try:
+        yield counts
+    finally:
+        for n in names:
+            setattr(TpuDepsResolver, n, real[n])
+
+
+def _cli_run(ctx, tmp, label, seed, env, backend):
+    """One seed through ``harness.burn.main`` on one service backend, its
+    stdout kept in OUT_DIR: (JSON entry, provenance dump, wall s, and
+    on the card's backend the launches, the recorder and the resolver's
+    grow/rebuild calls)."""
+    from cassandra_accord_tpu_torch.harness import burn
+    from cassandra_accord_tpu_torch.ops import _kernels as K
+    js = os.path.join(tmp, f"{label}_{backend}.json")
+    prov = os.path.join(tmp, f"{label}_{backend}_prov.json")
+    argv = ["--seeds", str(seed), "--ops", str(CLI["ops"]), "--audit=strict",
+            "--json", js, "--provenance", prov]
+    log = io.StringIO()
+    launches = chk = calls = None
+    t0 = time.perf_counter()
+    try:
+        with _environ(**CLI_ENV, **env, ACCORD_DEVICE=ctx["dev"],
+                      ACCORD_TPU_SERVICE_BACKEND=backend), \
+                contextlib.redirect_stdout(log):
+            if backend == "torch":
+                with KernelRecorder(ctx["torch"], K, every=10) as chk, \
+                        _resolver_calls() as calls:
+                    K.reset_launches()               # just before the run
+                    burn.main(argv)
+                    sync(ctx)
+                    launches = dict(K.LAUNCHES)      # just after it
+            else:
+                burn.main(argv)
+    except SystemExit as e:          # a stall (2) or a failed acceptance
+        raise PhaseFailed(f"burn CLI run {label} on {backend} exited "
+                          f"{e.code}") from e
+    finally:
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, f"cli_{label}_{backend}.log"),
+                  "w") as f:
+            f.write(log.getvalue())
+    wall = time.perf_counter() - t0
+    with open(js) as f:
+        entry = json.load(f)["results"][0]
+    return entry, prov, wall, (launches, chk, calls)
+
+
+def _cli_gate(ctx, tmp):
+    """tools_torch/perfgate.py under the device tier: the smoke's sim block
+    equals the host resolver's, the gate passes, its trend record goes to
+    a temporary ledger and never to the repository's."""
+    from cassandra_accord_tpu_torch.ops import _kernels as K
+    from tools_torch import perfgate
+    history = os.path.join(tmp, "history.jsonl")
+    repo_history = os.path.join(HERE, "BENCH_HISTORY.jsonl")
+    kept = _file_digest(repo_history)
+    report = io.StringIO()
+    with _environ(ACCORD_BENCH_HISTORY=history):
+        need("ACCORD_PERFGATE_INJECT_LATENCY" not in os.environ,
+             "the gate's latency-injection hook is set")
+        t0 = time.perf_counter()
+        host = perfgate.measure_smoke()
+        host_s = time.perf_counter() - t0
+        with _environ(**CLI_ENV, ACCORD_DEVICE=ctx["dev"],
+                      ACCORD_TPU_SERVICE_BACKEND="torch"):
+            K.reset_launches()
+            t0 = time.perf_counter()
+            dev = perfgate.measure_smoke()
+            sync(ctx)
+            dev_s = time.perf_counter() - t0
+            launches = dict(K.LAUNCHES)
+            rc = perfgate.run(gate=True, out=report)
+    need(dev["sim"] == host["sim"],
+         f"gate smoke under the device tier {dev['sim']} differs from the "
+         f"host resolver's {host['sim']}")
+    need(all(v > 0 for v in launches.values()),
+         f"the gate smoke under the device tier launched {launches}")
+    need(rc == 0, "the port's gate failed under the device tier:\n"
+         + report.getvalue()[-2000:])
+    with open(history) as f:
+        records = [json.loads(x) for x in f if x.strip()]
+    need(len(records) == 1 and records[0]["kind"] == "perfgate",
+         f"trend ledger records {records}")
+    need(_file_digest(repo_history) == kept,
+         "the repository's BENCH_HISTORY.jsonl changed")
+    return {"sim": dev["sim"], "sim_equal_to_host": True, "gate_rc": rc,
+            "host_smoke_s": host_s, "device_smoke_s": dev_s,
+            "device_smoke_launches": launches,
+            "device_commits_per_s": dev["wall"]["commits_per_sec"]}
+
+
+def phase_cli(ctx):
+    import tempfile
+    from tools_torch import explain
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    runs, totals = {}, {"deps_join": 0, "max_conflict": 0}
+    try:
+        for label, seed, env in CLI["runs"]:
+            host, host_prov, host_s, _ = _cli_run(ctx, tmp, label, seed, env,
+                                                  "host")
+            card, card_prov, card_s, (launches, chk, calls) = _cli_run(
+                ctx, tmp, label, seed, env, "torch")
+            audit = card.get("audit") or {}
+            need(card["status"] == "pass" and audit.get("violations") == 0,
+                 f"run {label}: status {card['status']}, audit {audit}")
+            got = {k: card.get(k) for k in CLI_OUTCOME}
+            want = {k: host.get(k) for k in CLI_OUTCOME}
+            need(got == want, f"run {label}: outcomes {got} differ from the "
+                 f"host backend's {want}")
+            need(audit == host.get("audit"),
+                 f"run {label}: audit verdict differs from the host backend's")
+            if env:
+                need(card["faults"].get("node_restarts", 0) > 0,
+                     f"run {label}: no node restarted: {card['faults']}")
+            consults = card["metrics"].get("resolver.device_consults", 0)
+            need(consults > 0, f"run {label}: no device consult")
+            need(all(v > 0 for v in launches.values()),
+                 f"run {label}: the CLI run launched {launches}")
+            need(chk.calls["deps_join"] == launches["deps_join"],
+                 f"run {label}: uncounted launch")
+            checked = chk.verify()
+            need(checked > 0, f"run {label}: no kernel call checked")
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = explain.main([host_prov, card_prov])
+            tail = json.loads(out.getvalue().strip().splitlines()[-1])
+            need(rc == 0 and tail.get("identical") is True,
+                 f"run {label}: causal DAGs differ (explain rc {rc}): {tail}")
+            for name in totals:
+                totals[name] += launches[name]
+            largest = ctx.setdefault("cli_largest", {})
+            for name, call in chk.largest.items():
+                if call[0] >= largest.get(name, (-1,))[0]:
+                    largest[name] = call
+            runs[label] = {
+                "seed": seed, "env": env,
+                "wall_s": {"torch": card_s, "host": host_s},
+                "cli_wall_s": {"torch": card["wall_s"], "host": host["wall_s"]},
+                "outcome": got, "audit": audit,
+                "device_consults": consults,
+                "service_batches":
+                    card["metrics"].get("resolver.service_batches", 0),
+                "host_consults": card["metrics"].get("resolver.host_consults"),
+                "launches": launches, "checked_calls": checked,
+                "resolver_calls": calls,
+                "explain": {"rc": rc, "events": tail.get("events_a")}}
+        ctx["cli_launches"] = totals
+        gate = _cli_gate(ctx, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    need(seconds <= CLI["budget_s"],
+         f"cli phase took {seconds:.1f} s > {CLI['budget_s']} s")
+    return {"ops": CLI["ops"], "runs": runs, "launches": totals,
+            "gate": gate, "nvidia_smi": ctx.get("smi_line")}
 
 
 # the graph phase's shapes: txn_step at kernel shape A's widths (bench.py
@@ -988,6 +1261,48 @@ def _graph_trajectory(ctx):
             "applied": applied, "equal_to_cpu": True}
 
 
+def _graph_slots(ctx):
+    """insert_batch and txn_step at T=4,096 with two valid rows aimed at
+    slots (T, 1), (-1, 1), (-1, T-1) and (-T-1, 1): no device-side assert,
+    and the card's state equals the CPU's (the CPU's equals the
+    reference's, tests/test_torch_graph.py and test_torch_model.py)."""
+    import numpy as np
+    torch = ctx["torch"]
+    from cassandra_accord_tpu_torch.models import conflict_graph as cg
+    from cassandra_accord_tpu_torch.ops import graph_state as gs
+    t, k = GRAPH["traj_T"], GRAPH["traj_K"]
+    rng = np.random.default_rng(23)
+    fields = _prefill(np, rng, t, k, t // 2)
+    cases = {"T,1": (t, 1), "-1,1": (-1, 1), "-1,T-1": (-1, t - 1),
+             "-T-1,1": (-t - 1, 1)}
+    devs = (ctx["dev"], "cpu")
+    for label, slots in cases.items():
+        f = _batch_fields(np, rng, t, k, 2, 100000, slots, 2)
+        ins = (f["slots"], f["key_inc"], f["txn_id"], f["txn_id"], f["kind"],
+               np.full(2, gs.STABLE, np.int8), np.ones((2, t), np.int8))
+        outs = []
+        for d in devs:
+            state = _state_on(torch, fields, d)
+            inserted = gs.insert_batch(
+                state, *(torch.from_numpy(a).to(d) for a in ins))
+            got = gs.state_to_numpy(inserted)
+            batch = cg.TxnBatch(**{n: torch.from_numpy(v).to(d)
+                                   for n, v in f.items()})
+            state, deps, done = cg.txn_step(state, batch)
+            outs.append((got, gs.state_to_numpy(state), deps.cpu(),
+                         done.cpu()))
+        sync(ctx)
+        (ins_a, st_a, deps_a, done_a), (ins_c, st_c, deps_c, done_c) = outs
+        for name in ins_c:
+            need(np.array_equal(ins_a[name], ins_c[name]),
+                 f"slots {label}: insert_batch {name} differs card vs CPU")
+            need(np.array_equal(st_a[name], st_c[name]),
+                 f"slots {label}: txn_step {name} differs card vs CPU")
+        need(torch.equal(deps_a, deps_c) and torch.equal(done_a, done_c),
+             f"slots {label}: txn_step deps/applied differ card vs CPU")
+    return {"T": t, "K": k, "cases": list(cases), "equal_to_cpu": True}
+
+
 def _graph_ops(ctx):
     """Closure, elision, SCC, Kahn levels and the frontier on config 5's
     bench graph: dense on the card, equal to their edge twins on the card,
@@ -1110,7 +1425,8 @@ def _graph_edges(ctx):
 def phase_graph(ctx):
     t0 = time.perf_counter()
     out = {"step": _graph_step(ctx), "trajectory": _graph_trajectory(ctx),
-           "ops": _graph_ops(ctx), "edges": _graph_edges(ctx)}
+           "slots": _graph_slots(ctx), "ops": _graph_ops(ctx),
+           "edges": _graph_edges(ctx)}
     seconds = time.perf_counter() - t0
     need(seconds <= GRAPH["budget_s"],
          f"graph phase took {seconds:.1f} s > {GRAPH['budget_s']} s")
@@ -1426,16 +1742,21 @@ ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
 
 def kernels_line(ctx):
     """One entry per kernel: the main path's (the burn's) launch count and
-    the numbers at the largest call it made, and the graph and mesh paths'
-    launch counts (the mesh's summed over its ranks); every other measured
-    shape (the full-size synthetic ones, the replay's largest call, the
-    full-width txn_step's K1 call, a mesh rank's calls) under ``shapes``,
+    the numbers at the largest call it made, and the graph, mesh and cli
+    paths' launch counts (the mesh's summed over its ranks, the cli's over
+    its seeds' runs on the card's backend); every other measured
+    shape (the full-size synthetic ones, the replay's and the cli runs'
+    largest calls, the full-width txn_step's K1 call, a mesh rank's calls)
+    under ``shapes``,
     none of them launched on the main path."""
     for key, path in (("burn_checker", "burn"), ("replay_checker", "replay")):
         chk = ctx.get(key)
         if chk is not None:
             for name, (_size, args, kwargs) in sorted(chk.largest.items()):
                 measure(ctx, name, f"{path}_largest", args, kwargs, 20, path)
+    for name, (_size, args, kwargs) in sorted(ctx.get("cli_largest",
+                                                      {}).items()):
+        measure(ctx, name, "cli_largest", args, kwargs, 20, "cli")
     if ctx.get("graph_join") is not None:
         args, kwargs = ctx["graph_join"]
         measure(ctx, "deps_join", "graph_step_T{T}_K{K}_B{B}".format(**GRAPH),
@@ -1462,7 +1783,8 @@ def kernels_line(ctx):
              "launches": ctx.get("burn_launches", {}).get(name, 0),
              "replay_launches": ctx.get("replay_launches", {}).get(name, 0),
              "graph_launches": ctx.get("graph_launches", {}).get(name, 0),
-             "mesh_launches": ctx.get("mesh_launches", {}).get(name, 0)}
+             "mesh_launches": ctx.get("mesh_launches", {}).get(name, 0),
+             "cli_launches": ctx.get("cli_launches", {}).get(name, 0)}
         e.update({k: head[k] for k in ROW_KEYS})
         e["shapes"] = [dict({k: r[k] for k in ROW_KEYS}, main_path_launches=0)
                        for r in rows if r is not head]
@@ -1502,8 +1824,8 @@ def main(argv=None) -> int:
            "real": {"deps_join": _kernels.deps_join,
                     "max_conflict": _kernels.max_conflict}}
     fns = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
-           "service": phase_service, "burn": phase_burn, "graph": phase_graph,
-           "mesh": phase_mesh, "replay": phase_replay}
+           "service": phase_service, "burn": phase_burn, "cli": phase_cli,
+           "graph": phase_graph, "mesh": phase_mesh, "replay": phase_replay}
     t_all = time.perf_counter()
     for name in PHASES:
         if name not in phases:

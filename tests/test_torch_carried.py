@@ -5,8 +5,8 @@ module reaches JAX or the reference package.
 unchanged; only docstrings and comments may differ (a docstring that quoted a
 TPU measurement was reworded).  So for every carried module the AST of the
 port's source, with docstrings stripped, must equal the reference's.  Every
-module of the port, and ``chip_smoke.py``, must import neither ``jax`` nor
-``cassandra_accord_tpu``.
+module of the port, ``chip_smoke.py`` and the port's tools (``tools_torch/``)
+must import neither ``jax`` nor ``cassandra_accord_tpu``.
 """
 import ast
 from pathlib import Path
@@ -90,7 +90,12 @@ def _imports(path: Path):
             yield node.module or ""
 
 
-@pytest.mark.parametrize("module", _port_modules() + ["../chip_smoke.py"])
+TOOLS = sorted(f"../tools_torch/{p.name}"
+               for p in (ROOT / "tools_torch").glob("*.py"))
+
+
+@pytest.mark.parametrize("module",
+                         _port_modules() + ["../chip_smoke.py"] + TOOLS)
 def test_port_module_imports_no_jax_or_reference(module):
     path = (PORT / module).resolve()
     bad = [m for m in _imports(path)

@@ -98,6 +98,61 @@ def test_deps_join_and_max_conflict_equal_plain(cuda, case):
     assert _kernels.LAUNCHES["max_conflict"] == before["max_conflict"] + 1
 
 
+def test_negative_columns_on_card_equal_plain_and_cpu(cuda):
+    """Columns -1 and -K name columns K-1 and 0 (the reference's densify
+    wraps them once); K and -K-1 are dropped.  The card's K1/K2 answers
+    equal the plain versions on the card and the wrappers on the CPU."""
+    t, k = 2049, 64
+    g = _inputs(np.random.default_rng(5), t, k, 4, cuda)
+    g["inc"][[0, k - 1]] = 1                     # the wrapped keys are real
+    g["offsets"] = torch.tensor([0, 3, 5, 6, 7], dtype=torch.int32,
+                                device=cuda)
+    g["cols"] = torch.tensor([-1, -k, k, -k - 1, 3, -1, 2], dtype=torch.int32,
+                             device=cuda)
+    args, margs = _args(g)
+    on_cpu = [[x.cpu() for x in a] for a in (args, margs)]
+    deps = _kernels.deps_join(*args)
+    cmax = _kernels.max_conflict(*margs)
+    assert torch.equal(deps, _kernels.deps_join_plain(*args))
+    assert torch.equal(cmax, _kernels.max_conflict_plain(*margs))
+    assert torch.equal(deps.cpu(), _kernels.deps_join(*on_cpu[0]))
+    assert torch.equal(cmax.cpu(), _kernels.max_conflict(*on_cpu[1]))
+    assert cmax[0].any() and cmax[2].any()
+
+
+@pytest.mark.parametrize("case", ["T,1", "-1,1", "-1,T-1", "-T-1,1"])
+def test_negative_and_out_of_range_slots_on_card_equal_cpu(cuda, case):
+    """insert_batch and txn_step with slots outside [0, T): no device-side
+    assert, and the state equals the CPU's (which equals the reference's,
+    tests/test_torch_graph.py and test_torch_model.py)."""
+    t, k = 64, 16
+    slots = {"T,1": (t, 1), "-1,1": (-1, 1), "-1,T-1": (-1, t - 1),
+             "-T-1,1": (-t - 1, 1)}[case]
+    st_c = gs.init_state(t, k, device="cpu")
+    lanes = torch.tensor([[1, 0, 100, 0, 1], [1, 0, 101, 0, 2]],
+                         dtype=torch.int32)
+    bt_c = cg.TxnBatch(slots=torch.tensor(slots, dtype=torch.int32),
+                       key_inc=torch.ones((2, k), dtype=torch.int8),
+                       txn_id=lanes, kind=torch.ones(2, dtype=torch.int8),
+                       valid=torch.ones(2, dtype=torch.bool))
+    ins = (bt_c.slots, bt_c.key_inc, bt_c.txn_id, bt_c.txn_id, bt_c.kind,
+           torch.full((2,), gs.STABLE, dtype=torch.int8),
+           torch.ones((2, t), dtype=torch.int8))
+    want = gs.insert_batch(st_c, *ins)
+    got = gs.insert_batch(gs.init_state(t, k, device=cuda),
+                          *(x.to(cuda) for x in ins))
+    for name, v in gs.state_to_numpy(want).items():
+        assert np.array_equal(gs.state_to_numpy(got)[name], v), name
+    want, deps_c, applied_c = cg.txn_step(st_c, bt_c)
+    got, deps, applied = cg.txn_step(gs.init_state(t, k, device=cuda),
+                                     cg.TxnBatch(*(x.to(cuda) for x in bt_c)))
+    torch.cuda.synchronize()
+    assert torch.equal(deps.cpu(), deps_c)
+    assert torch.equal(applied.cpu(), applied_c)
+    for name, v in gs.state_to_numpy(want).items():
+        assert np.array_equal(gs.state_to_numpy(got)[name], v), name
+
+
 def test_graph_replays_equal_plain(cuda):
     """K1 and K2, one tile and three, captured in one CUDA graph: every
     replay's answers equal the plain versions, with the outputs overwritten

@@ -140,6 +140,46 @@ def test_batch_updates_equal_reference_and_leave_input(seed):
         _assert_equal(v, before[f])
 
 
+# two batch slots for T slots: out of range (T), wrapped once (-1 names
+# T-1, also beside a row at T-1), out of range after the wrap (-T-1)
+SLOT_CASES = {"T,1": lambda t: (t, 1), "-1,1": lambda t: (-1, 1),
+              "-1,T-1": lambda t: (-1, t - 1), "-T-1,1": lambda t: (-t - 1, 1)}
+
+
+@pytest.mark.parametrize("case", list(SLOT_CASES))
+def test_batch_updates_with_negative_and_out_of_range_slots_equal_reference(
+        case):
+    """The reference's ``.at[slots].set`` wraps a slot in [-T, -1] once and
+    drops any other slot outside [0, T); a wrapped slot that names the same
+    slot as another row keeps the batch's last row."""
+    rng = np.random.default_rng(43)
+    t, k = 8, 4
+    fields = _mk_state(rng, t, k)
+    fields["active"][:] = False
+    slots = np.array(SLOT_CASES[case](t), np.int32)
+    b = len(slots)
+    key_inc = np.ones((b, k), np.int8)
+    ts = (np.arange(b * 5, dtype=np.int32).reshape(b, 5) + 600)
+    kind = np.array([1, 3], np.int8)
+    status = np.array([3, 4], np.int8)
+    deps = np.ones((b, t), np.int8)
+    args = (slots, key_inc, ts, ts + 1, kind, status, deps)
+    want = ref_gs.insert_batch(_ref_state(fields),
+                               *(jnp.asarray(a) for a in args))
+    got = gs.insert_batch(gs.state_from_numpy(fields, device="cpu"),
+                          *(torch.from_numpy(a) for a in args))
+    _assert_state_equal(got, want)
+    assert int(got.active.sum()) == len({int(x) % t for x in slots
+                                         if -t <= x < t})
+    for fn, vals in ((gs.set_status_batch, status),
+                     (gs.set_execute_at_batch, ts)):
+        want = getattr(ref_gs, fn.__name__)(
+            _ref_state(fields), jnp.asarray(slots), jnp.asarray(vals))
+        got = fn(gs.state_from_numpy(fields, device="cpu"),
+                 torch.from_numpy(slots), torch.from_numpy(vals))
+        _assert_state_equal(got, want)
+
+
 @pytest.mark.parametrize("t", [40, 37])
 def test_evict_mask_equals_reference_and_leaves_input(t):
     """T = 40 masks the adjacency in 8-byte words, T = 37 byte by byte."""

@@ -164,6 +164,41 @@ def test_padding_row_after_valid_row_at_last_slot_equals_reference():
     assert bool(got[0].active[7]) and int(got[0].status[7]) == gs.PREACCEPTED
 
 
+SLOT_CASES = {"T,1": lambda t: (t, 1), "-1,1": lambda t: (-1, 1),
+              "-1,T-1": lambda t: (-1, t - 1), "-T-1,1": lambda t: (-t - 1, 1)}
+
+
+@pytest.mark.parametrize("case", list(SLOT_CASES))
+def test_steps_with_negative_and_out_of_range_slots_equal_reference(case):
+    """A valid row's slot T and -T-1 insert nothing, -1 names slot T-1 (the
+    later row wins when another names T-1 too), through preaccept_step,
+    stabilise_step and txn_step; then padding rows take part at T-1."""
+    rng = np.random.default_rng(44)
+    t, k = 8, 4
+    slots = np.array(SLOT_CASES[case](t), np.int32)
+    fields = _mk_state(rng, t, k, occupied=0.0)
+    bt = _batch_np(rng, len(slots), k, 1000, slots)
+    got = cg.preaccept_step(_port_state(fields), _port_batch(bt))
+    want = ref_cg.preaccept_step(_ref_state(fields), _ref_batch(bt))
+    _assert_state_equal(got[0], want[0])
+    for a, c in zip(got[1:], want[1:]):
+        _assert_equal(a.numpy(), c)
+    args = (bt["slots"], bt["txn_id"] + 3, bt["valid"])
+    got = cg.stabilise_step(_port_state(fields),
+                            *(torch.from_numpy(a) for a in args))
+    want = ref_cg.stabilise_step(_ref_state(fields),
+                                 *(jnp.asarray(a) for a in args))
+    _assert_state_equal(got, want)
+    port, ref = _port_state(fields), _ref_state(fields)
+    for n_valid in (2, 1):
+        bt = _batch_np(rng, len(slots), k, 2000 + n_valid, slots, n_valid)
+        port, deps, applied = cg.txn_step(port, _port_batch(bt))
+        ref, r_deps, r_applied = ref_cg.txn_step(ref, _ref_batch(bt))
+        _assert_equal(deps.numpy(), r_deps)
+        _assert_equal(applied.numpy(), r_applied)
+        _assert_state_equal(port, ref)
+
+
 # ---------------------------------------------------------------------------
 # txn_step trajectories
 # ---------------------------------------------------------------------------

@@ -343,15 +343,20 @@ def test_wrappers_raise_off_cpu_and_cuda():
 
 def test_out_of_range_codes_and_columns_equal_reference():
     """Kind codes past the witness table clamp (as the reference's gather
-    does) and query columns at or past K are dropped (as its scatter does)."""
+    does); query columns at or past K, or below -K, are dropped, and a
+    column in [-K, -1] names column + K (as its scatter does)."""
     rng = np.random.default_rng(41)
     ix = _mk_index(rng, 64, K)
     ix["kind"][::5] = 9
-    rows = [(1, K + 3), (K,), (2, 3)]
-    before = [(400, 400, 400, 400, 400)] * 3
-    ref, port = _ragged_pair(ix, rows, before, [9, 1, 4], False)
+    rows = [(1, K + 3), (K,), (2, 3), (-1,), (-K,), (-K - 1,), (-1, K - 1)]
+    before = [(400, 400, 400, 400, 400)] * len(rows)
+    ref, port = _ragged_pair(ix, rows, before, [9, 1, 4, 1, 1, 1, 4], False)
     for a, b in zip(port, ref):
         _assert_equal(a, b)
+    deps, cmax = port
+    # the wrapped columns name real keys; the one below -K names none
+    assert deps[3].any() and deps[4].any() and cmax[3].any()
+    assert not deps[5].any() and not cmax[5].any()
 
 
 def test_observe_peak_share_keys():

@@ -68,6 +68,15 @@ def _dup_batches():
     return [_round_batches()[0], b]
 
 
+def _neg_batches():
+    """Round 0, then a batch whose rows 2, 6 and 9 name slots -1, T and
+    -T-1: no rank owns them, so the reference's sharded step drops them
+    (the single-card scatter would wrap -1 to T-1)."""
+    b = _batch(np.random.default_rng(9), 6000, np.arange(B) + 24)
+    b["slots"][[2, 6, 9]] = (-1, T, -T - 1)
+    return [_round_batches()[0], b]
+
+
 def _empty_state():
     return gs.state_to_numpy(gs.init_state(T, K, device="cpu"))
 
@@ -139,6 +148,7 @@ def ranks(port_live):
     calls = [
         (launch.steps_rank, (_empty_state(), _round_batches())),
         (launch.steps_rank, (_empty_state(), _dup_batches())),
+        (launch.steps_rank, (_empty_state(), _neg_batches())),
         (launch.closure_rank, (_closure_adj(),)),
         (launch.store_consult_rank, (_store_arrays(),)),
         (launch.frontier_rank, _frontier_arrays()),
@@ -147,7 +157,7 @@ def ranks(port_live):
     results = launch.run_ranks(N, launch.sequence, (calls,), device="cpu",
                                timeout_s=RANK_TIMEOUT_S)
     assert len(results) == N
-    names = ("steps", "dup", "closure", "consult", "frontier", "live")
+    names = ("steps", "dup", "neg", "closure", "consult", "frontier", "live")
     out = {name: [r.value[i] for r in results]
            for i, name in enumerate(names)}
     out["launches"] = [r.launches for r in results]
@@ -220,6 +230,20 @@ def test_sharded_step_duplicate_slot_and_invalid_rows_equal_reference(
     assert np.array_equal(got["txn_id"][s2], b["txn_id"][5])
     assert np.array_equal(got["txn_id"][s3], b["txn_id"][3])
     assert not got["active"][s7]
+
+
+def test_sharded_step_negative_and_out_of_range_slots_equal_reference(
+        ranks, ref_mesh):
+    """Valid rows at slots -1, T and -T-1 write nothing on any rank, as in
+    the reference's sharded step; the batch's other rows are inserted."""
+    batches = _neg_batches()
+    state, outs = _ref_steps(ref_mesh, batches)
+    _check_steps(ranks["neg"], state, outs)
+    got = _state_of(ranks["neg"])
+    assert not got["active"][T - 1]
+    b = batches[1]
+    for i in (0, 1, 3):
+        assert np.array_equal(got["txn_id"][b["slots"][i]], b["txn_id"][i])
 
 
 def test_sharded_closure_equals_reference(ranks, ref_mesh):
