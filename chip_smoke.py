@@ -32,7 +32,9 @@ Phases, one JSON line each; any failure exits non-zero:
 6. cli      the burn CLI's fault matrix (``harness.burn.main``, in
             process) on seeds 0 and 1 at 120 ops with --audit=strict, and
             seed 1 again with crash-restarts every 3 sim-s, the device tier
-            forced through the environment the CLI reads: each run on the
+            forced through the environment the CLI reads, then seed 0 under
+            the workload presets multirange, zipf and openloop and under
+            --elastic at 60 ops: each run on the
             card's backend (launches counted around the run,
             every tenth call checked against the plain version) and on the
             host backend, with equal outcomes and audit verdicts and
@@ -40,7 +42,23 @@ Phases, one JSON line each; any failure exits non-zero:
             gate (tools_torch/perfgate.py) under the same environment: its
             smoke's sim block equals the host resolver's and the gate
             passes against BASELINE.json;
-7. graph    the conflict-graph model: txn_step at T=65,536, K=512,
+7. maelstrom the Maelstrom adapter on the device tier, set only through the
+            environment it reads: run_workload (seed 1 on 3 nodes, seeds 2
+            and 9 on 5 nodes with partitions, 100 ops, history oracle on)
+            on the card's backend equal to the host backend's, launches
+            counted, every tenth call checked; then the stdio binary
+            (python -m cassandra_accord_tpu_torch.maelstrom, the command a
+            Maelstrom user runs, through runpy so that it reports its
+            launches and device consults at exit) fed 33 txns: its replies
+            equal the same binary's on the host backend, exit 0, no
+            traceback, launches and device consults on the card;
+8. verify   the verify resolver (every answer checked against the cfk walk,
+            frontiers every 0.7 sim-s) on a seed-7 300-op burn with the
+            device tier through the service on the card: it completes, its
+            trace and outcomes equal the host backend's, and its trace,
+            outcomes and every resolver stat equal the same backend's run
+            on the CPU;
+9. graph    the conflict-graph model: txn_step at T=65,536, K=512,
             B=256 with a gc step every 8 (K1 launches counted, each K1
             answer held against its plain version, step ms, peak memory and
             the step's floor); a T=4,096 trajectory with padded batches,
@@ -48,7 +66,7 @@ Phases, one JSON line each; any failure exits non-zero:
             slots T, -1 and -T-1, card against CPU; closure/elide/SCC/Kahn
             at T=8,192 dense against their edge twins, card against CPU;
             the edge kernels at T=1,048,576 (E ~ 8.4M), card against CPU;
-8. mesh     the sharded data plane (parallel/, one process per rank over
+10. mesh    the sharded data plane (parallel/, one process per rank over
             torch.distributed): four ranks over gloo on the one card
             (collectives staged through host memory; not a multi-card
             figure) run 16 sharded steps at T=65,536, K=512, B=256 from the
@@ -60,8 +78,16 @@ Phases, one JSON line each; any failure exits non-zero:
             dryrun_multichip(4) over gloo (>= 1,000 live queries, both
             parity checks).  Per rank: step wall, device and collective ms,
             peak memory, K1 launches (16 each);
-9. replay   a recorded burn replayed at T~32,768 through the host and
-            device tiers with sampled parity against the cfk walk.
+11. replay  bench.py's replay stage: a recorded 6-key burn replayed at
+            T=4,096 and 32,768 through the walk (sampled), host, auto (the
+            shipped cost model) and device tiers, and the same burn over
+            1,000 keys (range transactions, queries up to ~500 keys wide)
+            at T=4,096 and 8,192; each tier under a valve (prefix replay,
+            labelled truncated, with the events reached and the live index
+            held); sampled parity against the cfk walk (range queries too),
+            the cost model's calibrated threshold (five calibrations) and
+            its routing split, K1/K2 launches per replay, every tenth call
+            checked against the plain version.
 
 Then the card's nvidia-smi line, one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Without CUDA, or run from a directory
@@ -82,8 +108,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(os.getcwd(), "chiprun_out")
-PHASES = ("env", "build", "kernels", "service", "burn", "cli", "graph",
-          "mesh", "replay")
+PHASES = ("env", "build", "kernels", "service", "burn", "cli", "maelstrom",
+          "verify", "graph", "mesh", "replay")
 
 # H100 SXM data sheet (NVIDIA), dense rates at the 700 W limit: HBM3 at
 # 3.35 TB/s; 67 TFLOP/s FP32 on the CUDA cores, the rate class the consult
@@ -321,13 +347,11 @@ def to_csr(np, rows):
 class KernelRecorder:
     """Wraps ``_kernels.deps_join``/``max_conflict`` while installed.  The
     real wrapper still does every launch (and its count).  Every
-    ``every``-th call's inputs and output are kept (none when ``every`` is
-    0), and the largest call per kernel for timing at the path's own
-    shapes; ``verify`` then computes
-    the plain version on each kept call and compares exactly.  Checking
-    after the run keeps the plain versions out of the run's wall time; the
-    kept inputs are still as they were, because the index refreshes
-    copy-on-write and never writes a buffer a call has read."""
+    ``every``-th call (none when ``every`` is 0) is held against the plain
+    version on the same inputs at once, exactly; ``check_s`` sums the
+    seconds those checks took, which the phases take off the wall times
+    they report.  Nothing is kept but the largest call per kernel, for
+    timing at the path's own shapes."""
 
     def __init__(self, torch, kmod, every: int = 1):
         self.torch = torch
@@ -336,8 +360,18 @@ class KernelRecorder:
         self.real = {"deps_join": kmod.deps_join,
                      "max_conflict": kmod.max_conflict}
         self.calls = {"deps_join": 0, "max_conflict": 0}
-        self.kept = []
         self.largest = {}
+        self.checked = 0
+        self.check_s = 0.0
+
+    def _check(self, name, args, kwargs, got):
+        t0 = time.perf_counter()
+        want = getattr(self.k, f"{name}_plain")(*args, **kwargs)
+        need(self.torch.equal(got, want),
+             f"{name} differs from its plain version at "
+             f"T={args[0].shape[1]} K={args[0].shape[0]}")
+        self.checked += 1
+        self.check_s += time.perf_counter() - t0
 
     def _wrap(self, name):
         real = self.real[name]
@@ -346,21 +380,13 @@ class KernelRecorder:
         def call(*args, **kwargs):
             got = real(*args, **kwargs)
             if self.every and self.calls[name] % self.every == 0:
-                self.kept.append((name, args, kwargs, got))
+                self._check(name, args, kwargs, got)
             self.calls[name] += 1
             size = (args[rows_arg].numel() - 1) * args[0].shape[1]
             if size >= self.largest.get(name, (-1,))[0]:
                 self.largest[name] = (size, args, kwargs)
             return got
         return call
-
-    def verify(self) -> int:
-        for name, args, kwargs, got in self.kept:
-            want = getattr(self.k, f"{name}_plain")(*args, **kwargs)
-            need(self.torch.equal(got, want),
-                 f"{name} differs from its plain version at "
-                 f"T={args[0].shape[1]} K={args[0].shape[0]}")
-        return len(self.kept)
 
     def __enter__(self):
         self.k.deps_join = self._wrap("deps_join")
@@ -640,13 +666,13 @@ def phase_service(ctx):
             key_inc[dirty, rng.integers(0, k, 8)] = 1
             r._dirty_rows.update(int(x) for x in dirty)
     sync(ctx)
-    wall = time.perf_counter() - t0
+    wall = time.perf_counter() - t0 - chk.check_s
     launches = dict(K.LAUNCHES)
     need(answered == windows * b, f"answered {answered}")
     need(launches["deps_join"] > 0 and launches["max_conflict"] > 0,
          f"service launched no kernel: {launches}")
     need(chk.calls["deps_join"] == launches["deps_join"], "uncounted launch")
-    checked = chk.verify()
+    checked = chk.checked
     st = svc.stats()
     return {"T": t, "K": k, "B": b, "windows": windows, "answered": answered,
             "checked_calls": checked, "launches": launches,
@@ -697,7 +723,8 @@ def phase_burn(ctx):
                 ctx["burn_checker"] = chk
             else:
                 out["oneshot_launches"] = launches
-        wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0 - (
+            checkers[name].check_s if name in checkers else 0.0)
         traces[name] = tr
         results[name] = res
         out[name] = {"wall_s": wall, "ops_ok": res.ops_ok,
@@ -718,8 +745,8 @@ def phase_burn(ctx):
              f"{name} outcomes differ from the host backend's: "
              f"{outcome(results[name])} vs {outcome(results['host'])}")
     out.update(launches=ctx["burn_launches"],
-               checked_calls=ctx["burn_checker"].verify(),
-               oneshot_checked_calls=checkers["oneshot"].verify(),
+               checked_calls=ctx["burn_checker"].checked,
+               oneshot_checked_calls=checkers["oneshot"].checked,
                trace_equal_to_host=True, oneshot_trace_equal_to_host=True,
                verifier="pass")
     return out
@@ -733,14 +760,25 @@ def phase_burn(ctx):
 # ops (a restart every 20 sim-s, a run lasts 7-8), so seed 1 runs once
 # more with the cadences the CLI also reads from the environment cut to
 # a restart every 3 sim-s, a pause or a disk stall every 4: its nodes
-# crash, restart and rebuild their stores from the journal
+# crash, restart and rebuild their stores from the journal.  Then seed 0
+# under the CLI's workload presets (multirange: multi-key and range
+# transactions; zipf: skewed keys; openloop: arrivals at a fixed rate) and
+# under membership churn (--elastic: joins and decommissions under load),
+# these four cut to 60 ops for the script's time
 RESTARTS_ENV = dict(ACCORD_RESTART_INTERVAL="3", ACCORD_PAUSE_INTERVAL="4",
                     ACCORD_DISK_STALL_INTERVAL="4")
-CLI = dict(runs=(("0", 0, {}), ("1", 1, {}), ("1_restarts", 1, RESTARTS_ENV)),
-           ops=120, budget_s=180.0)
-CLI_ENV = dict(ACCORD_RESOLVER="tpu", ACCORD_TPU_TIER="device",
-               ACCORD_TPU_WALK_MAX="0", ACCORD_TPU_WALK_WIDTH="0",
-               ACCORD_TPU_SERVICE="on")
+CLI = dict(runs=(("0", 0, 120, {}, ()), ("1", 1, 120, {}, ()),
+                 ("1_restarts", 1, 120, RESTARTS_ENV, ()),
+                 ("0_multirange", 0, 60, {}, ("--workload", "multirange")),
+                 ("0_zipf", 0, 60, {}, ("--workload", "zipf")),
+                 ("0_openloop", 0, 60, {}, ("--workload", "openloop")),
+                 ("0_elastic", 0, 60, {}, ("--elastic",))),
+           budget_s=240.0)
+# the device tier forced through the consult service, set through the
+# environment that the CLI and the Maelstrom adapter read (config.py)
+DEVICE_TIER_ENV = dict(ACCORD_RESOLVER="tpu", ACCORD_TPU_TIER="device",
+                       ACCORD_TPU_WALK_MAX="0", ACCORD_TPU_WALK_WIDTH="0",
+                       ACCORD_TPU_SERVICE="on")
 CLI_OUTCOME = ("status", "rf", "resolved", "ok", "recovered", "nacked",
                "lost", "failed", "shed", "sim_ms", "faults")
 
@@ -789,8 +827,9 @@ def _resolver_calls(names=("_grow", "_rebuild")):
             setattr(TpuDepsResolver, n, real[n])
 
 
-def _cli_run(ctx, tmp, label, seed, env, backend):
-    """One seed through ``harness.burn.main`` on one service backend, its
+def _cli_run(ctx, tmp, label, seed, ops, env, extra, backend):
+    """One seed through ``harness.burn.main`` (with the arguments ``extra``)
+    on one service backend, its
     stdout kept in OUT_DIR: (JSON entry, provenance dump, wall s, and
     on the card's backend the launches, the recorder and the resolver's
     grow/rebuild calls)."""
@@ -798,13 +837,13 @@ def _cli_run(ctx, tmp, label, seed, env, backend):
     from cassandra_accord_tpu_torch.ops import _kernels as K
     js = os.path.join(tmp, f"{label}_{backend}.json")
     prov = os.path.join(tmp, f"{label}_{backend}_prov.json")
-    argv = ["--seeds", str(seed), "--ops", str(CLI["ops"]), "--audit=strict",
-            "--json", js, "--provenance", prov]
+    argv = ["--seeds", str(seed), "--ops", str(ops), "--audit=strict",
+            "--json", js, "--provenance", prov, *extra]
     log = io.StringIO()
     launches = chk = calls = None
     t0 = time.perf_counter()
     try:
-        with _environ(**CLI_ENV, **env, ACCORD_DEVICE=ctx["dev"],
+        with _environ(**DEVICE_TIER_ENV, **env, ACCORD_DEVICE=ctx["dev"],
                       ACCORD_TPU_SERVICE_BACKEND=backend), \
                 contextlib.redirect_stdout(log):
             if backend == "torch":
@@ -824,7 +863,7 @@ def _cli_run(ctx, tmp, label, seed, env, backend):
         with open(os.path.join(OUT_DIR, f"cli_{label}_{backend}.log"),
                   "w") as f:
             f.write(log.getvalue())
-    wall = time.perf_counter() - t0
+    wall = time.perf_counter() - t0 - (chk.check_s if chk else 0.0)
     with open(js) as f:
         entry = json.load(f)["results"][0]
     return entry, prov, wall, (launches, chk, calls)
@@ -846,7 +885,7 @@ def _cli_gate(ctx, tmp):
         t0 = time.perf_counter()
         host = perfgate.measure_smoke()
         host_s = time.perf_counter() - t0
-        with _environ(**CLI_ENV, ACCORD_DEVICE=ctx["dev"],
+        with _environ(**DEVICE_TIER_ENV, ACCORD_DEVICE=ctx["dev"],
                       ACCORD_TPU_SERVICE_BACKEND="torch"):
             K.reset_launches()
             t0 = time.perf_counter()
@@ -881,11 +920,11 @@ def phase_cli(ctx):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     runs, totals = {}, {"deps_join": 0, "max_conflict": 0}
     try:
-        for label, seed, env in CLI["runs"]:
-            host, host_prov, host_s, _ = _cli_run(ctx, tmp, label, seed, env,
-                                                  "host")
+        for label, seed, ops, env, extra in CLI["runs"]:
+            host, host_prov, host_s, _ = _cli_run(ctx, tmp, label, seed, ops,
+                                                  env, extra, "host")
             card, card_prov, card_s, (launches, chk, calls) = _cli_run(
-                ctx, tmp, label, seed, env, "torch")
+                ctx, tmp, label, seed, ops, env, extra, "torch")
             audit = card.get("audit") or {}
             need(card["status"] == "pass" and audit.get("violations") == 0,
                  f"run {label}: status {card['status']}, audit {audit}")
@@ -904,7 +943,7 @@ def phase_cli(ctx):
                  f"run {label}: the CLI run launched {launches}")
             need(chk.calls["deps_join"] == launches["deps_join"],
                  f"run {label}: uncounted launch")
-            checked = chk.verify()
+            checked = chk.checked
             need(checked > 0, f"run {label}: no kernel call checked")
             out = io.StringIO()
             with contextlib.redirect_stdout(out):
@@ -919,7 +958,7 @@ def phase_cli(ctx):
                 if call[0] >= largest.get(name, (-1,))[0]:
                     largest[name] = call
             runs[label] = {
-                "seed": seed, "env": env,
+                "seed": seed, "ops": ops, "env": env, "args": list(extra),
                 "wall_s": {"torch": card_s, "host": host_s},
                 "cli_wall_s": {"torch": card["wall_s"], "host": host["wall_s"]},
                 "outcome": got, "audit": audit,
@@ -937,8 +976,343 @@ def phase_cli(ctx):
     seconds = time.perf_counter() - t0
     need(seconds <= CLI["budget_s"],
          f"cli phase took {seconds:.1f} s > {CLI['budget_s']} s")
-    return {"ops": CLI["ops"], "runs": runs, "launches": totals,
+    return {"runs": runs, "launches": totals,
             "gate": gate, "nvidia_smi": ctx.get("smi_line")}
+
+
+# the maelstrom phase: the Maelstrom adapter (maelstrom/, carried from the
+# reference) on the device tier.  MaelstromNode builds its Node without a
+# config, so the tier is set only through the environment (LocalConfig.
+# from_env).  The in-process runs are tests/test_maelstrom.py's shapes
+# (:133-148) at 100 ops instead of 40; the stdio binary gets that file's
+# three packets (:155-163) and 30 more list-append txns on 4 keys
+MAELSTROM = dict(runs=((1, 3, None), (2, 5, 1.5), (9, 5, 1.5)), ops=100,
+                 stdio_txns=30, stdio_keys=4, stdio_timeout_s=120.0,
+                 budget_s=90.0)
+
+
+@contextlib.contextmanager
+def _resolvers():
+    """The TpuDepsResolvers made while installed (their consult counters
+    outlive the run that made them)."""
+    from cassandra_accord_tpu_torch.impl.tpu_resolver import TpuDepsResolver
+    made = []
+    real = TpuDepsResolver.__init__
+
+    def init(self, *args, **kwargs):
+        real(self, *args, **kwargs)
+        made.append(self)
+    TpuDepsResolver.__init__ = init
+    try:
+        yield made
+    finally:
+        TpuDepsResolver.__init__ = real
+
+
+def _maelstrom_run(ctx, seed, nodes, partitions, backend):
+    """One in-process run_workload on one service backend: (output, wall s,
+    device consults, and on the card's backend launches and recorder)."""
+    from cassandra_accord_tpu_torch.maelstrom.runner import run_workload
+    from cassandra_accord_tpu_torch.ops import _kernels as K
+    launches = chk = None
+    with _environ(**DEVICE_TIER_ENV, ACCORD_DEVICE=ctx["dev"],
+                  ACCORD_TPU_SERVICE_BACKEND=backend), _resolvers() as made:
+        t0 = time.perf_counter()
+        if backend == "torch":
+            with KernelRecorder(ctx["torch"], K, every=10) as chk:
+                K.reset_launches()                   # just before the run
+                out = run_workload(seed, n_nodes=nodes, ops=MAELSTROM["ops"],
+                                   partition_interval_s=partitions, check=True)
+                sync(ctx)
+                launches = dict(K.LAUNCHES)          # just after it
+        else:
+            out = run_workload(seed, n_nodes=nodes, ops=MAELSTROM["ops"],
+                               partition_interval_s=partitions, check=True)
+        wall = time.perf_counter() - t0 - (chk.check_s if chk else 0.0)
+    consults = sum(r.device_consults for r in made)
+    return out, wall, consults, launches, chk
+
+
+def _stdio_packets():
+    """test_stdio_single_node's init and two txns, then list-append txns of
+    1-3 micro-ops on a few keys from a fixed seed (each appended value
+    unique, as the list-append checker needs)."""
+    import random
+    rng = random.Random(13)
+    packets = [
+        {"src": "c1", "dest": "n1",
+         "body": {"type": "init", "msg_id": 1, "node_id": "n1",
+                  "node_ids": ["n1"]}},
+        {"src": "c1", "dest": "n1",
+         "body": {"type": "txn", "msg_id": 2,
+                  "txn": [["append", 5, 1], ["r", 5, None]]}},
+        {"src": "c1", "dest": "n1",
+         "body": {"type": "txn", "msg_id": 3,
+                  "txn": [["append", 5, 2], ["r", 5, None]]}}]
+    value = 100
+    for i in range(MAELSTROM["stdio_txns"]):
+        ops = []
+        for _ in range(rng.randint(1, 3)):
+            key = rng.randrange(MAELSTROM["stdio_keys"])
+            if rng.random() < 0.5:
+                ops.append(["r", key, None])
+            else:
+                value += 1
+                ops.append(["append", key, value])
+        packets.append({"src": "c1", "dest": "n1",
+                        "body": {"type": "txn", "msg_id": 4 + i, "txn": ops}})
+    return packets
+
+
+# the binary's entry point (``python -m cassandra_accord_tpu_torch.
+# maelstrom``) run through runpy, so that the process reports on stderr at
+# exit what its resolvers did: the kernels' launch counts and the device
+# consults of every TpuDepsResolver it made
+STDIO_MAIN = """
+import atexit, json, runpy, sys
+from cassandra_accord_tpu_torch.impl.tpu_resolver import TpuDepsResolver
+from cassandra_accord_tpu_torch.ops import _kernels as K
+made, init = [], TpuDepsResolver.__init__
+def track(self, *args, **kwargs):
+    init(self, *args, **kwargs)
+    made.append(self)
+TpuDepsResolver.__init__ = track
+atexit.register(lambda: print("STDIO_COUNTS " + json.dumps(
+    {"launches": dict(K.LAUNCHES),
+     "device_consults": sum(r.device_consults for r in made)}),
+    file=sys.stderr))
+runpy.run_module("cassandra_accord_tpu_torch.maelstrom", run_name="__main__",
+                 alter_sys=True)
+"""
+
+
+def _stdio_run(ctx, packets, backend):
+    """The Maelstrom node binary as Maelstrom runs it: a subprocess fed
+    JSON lines on stdin.  Stdin stays open until every request has its
+    reply (the binary stops at end of input), then closes.  Returns (reply
+    body by in_reply_to, exit code, stderr, wall s, the counts the process
+    reported at exit)."""
+    import queue
+    import tempfile
+    import threading
+    env = dict(os.environ, **DEVICE_TIER_ENV, ACCORD_DEVICE=ctx["dev"],
+               ACCORD_TPU_SERVICE_BACKEND=backend)
+    env["PYTHONPATH"] = os.pathsep.join(
+        x for x in (HERE, env.get("PYTHONPATH")) if x)
+    want = {p["body"]["msg_id"] for p in packets}
+    replies = {}
+    lines = queue.Queue()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryFile(mode="w+") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", STDIO_MAIN],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err,
+            text=True, cwd=HERE, env=env)
+        try:
+            reader = threading.Thread(
+                target=lambda: [lines.put(x) for x in proc.stdout] + [
+                    lines.put(None)], daemon=True)
+            reader.start()
+            proc.stdin.write("".join(json.dumps(p) + "\n" for p in packets))
+            proc.stdin.flush()
+            deadline = time.monotonic() + MAELSTROM["stdio_timeout_s"]
+            while want - replies.keys():
+                try:
+                    line = lines.get(timeout=max(0.0, deadline -
+                                                 time.monotonic()))
+                except queue.Empty:
+                    raise PhaseFailed(
+                        f"stdio binary ({backend}): no reply to "
+                        f"{sorted(want - replies.keys())} in "
+                        f"{MAELSTROM['stdio_timeout_s']} s") from None
+                if line is None:
+                    break
+                packet = json.loads(line)
+                if packet.get("dest") == "c1":
+                    body = packet["body"]
+                    replies[body.get("in_reply_to")] = body
+            proc.stdin.close()
+            rc = proc.wait(timeout=60)
+            reader.join(timeout=10)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        err.seek(0)
+        stderr = err.read()
+    wall = time.perf_counter() - t0
+    counts = [json.loads(x.split(" ", 1)[1]) for x in stderr.splitlines()
+              if x.startswith("STDIO_COUNTS ")]
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, f"maelstrom_stdio_{backend}.log"),
+              "w") as f:
+        f.write(json.dumps({str(k): v for k, v in sorted(
+            replies.items(), key=lambda kv: str(kv[0]))}, indent=1))
+        f.write("\n--- stderr ---\n" + stderr)
+    return replies, rc, stderr, wall, counts[-1] if counts else None
+
+
+def phase_maelstrom(ctx):
+    t0 = time.perf_counter()
+    runs, totals = {}, {"deps_join": 0, "max_conflict": 0}
+    for seed, nodes, partitions in MAELSTROM["runs"]:
+        host, host_s, _, _, _ = _maelstrom_run(ctx, seed, nodes, partitions,
+                                               "host")
+        card, card_s, consults, launches, chk = _maelstrom_run(
+            ctx, seed, nodes, partitions, "torch")
+        label = f"seed{seed}_n{nodes}"
+        need(card == host, f"maelstrom {label}: the card's output {card} "
+             f"differs from the host backend's {host}")
+        need(card["ok"] == MAELSTROM["ops"],
+             f"maelstrom {label}: {card['ok']} of {MAELSTROM['ops']} ok")
+        need(all(v > 0 for v in launches.values()),
+             f"maelstrom {label}: launched {launches}")
+        need(chk.calls["deps_join"] == launches["deps_join"],
+             f"maelstrom {label}: uncounted launch")
+        need(consults > 0, f"maelstrom {label}: no device consult")
+        checked = chk.checked
+        need(checked > 0, f"maelstrom {label}: no kernel call checked")
+        for name in totals:
+            totals[name] += launches[name]
+        runs[label] = {"seed": seed, "nodes": nodes,
+                       "partition_interval_s": partitions,
+                       "ops": MAELSTROM["ops"],
+                       "wall_s": {"torch": card_s, "host": host_s},
+                       "device_consults": consults,
+                       "launches": launches, "checked_calls": checked,
+                       "output": {k: card[k] for k in card if k != "history"},
+                       "history": card.get("history")}
+    packets = _stdio_packets()
+    stdio = {}
+    for backend in ("host", "torch"):
+        replies, rc, stderr, wall, counts = _stdio_run(ctx, packets, backend)
+        need(rc == 0, f"stdio binary ({backend}) exited {rc}:\n"
+             f"{stderr[-2000:]}")
+        need("Traceback" not in stderr,
+             f"stdio binary ({backend}) printed a traceback:\n"
+             f"{stderr[-2000:]}")
+        need(counts is not None, f"stdio binary ({backend}) reported no "
+             f"counts at exit:\n{stderr[-2000:]}")
+        if backend == "torch":
+            need(all(v > 0 for v in counts["launches"].values())
+                 and counts["device_consults"] > 0,
+                 f"stdio binary on the card: {counts}")
+        stdio[backend] = (replies, wall, counts)
+    strip = ("msg_id",)      # numbered in reply order, which may differ
+
+    def bodies(replies):
+        return {k: {f: v for f, v in b.items() if f not in strip}
+                for k, b in replies.items()}
+    card, host = bodies(stdio["torch"][0]), bodies(stdio["host"][0])
+    need(card == host, "stdio binary: the card's replies differ from the "
+         f"host backend's: {sorted(k for k in host if card.get(k) != host[k])}")
+    types = {}
+    for b in card.values():
+        types[b["type"]] = types.get(b["type"], 0) + 1
+    need(card[1]["type"] == "init_ok" and card[2]["type"] == "txn_ok"
+         and card[2]["txn"][1] == ["r", 5, []] and card[3]["type"] == "txn_ok"
+         and card[3]["txn"][1] == ["r", 5, [1]],
+         f"stdio binary: replies to 1-3 are not test_stdio_single_node's: "
+         f"{[card.get(i) for i in (1, 2, 3)]}")
+    ctx["maelstrom_launches"] = totals
+    ctx["maelstrom_stdio_launches"] = stdio["torch"][2]["launches"]
+    seconds = time.perf_counter() - t0
+    need(seconds <= MAELSTROM["budget_s"],
+         f"maelstrom phase took {seconds:.1f} s > {MAELSTROM['budget_s']} s")
+    return {"runs": runs, "launches": totals,
+            "stdio": {"requests": len(packets), "reply_types": types,
+                      "equal_to_host": True,
+                      "wall_s": {b: stdio[b][1] for b in stdio},
+                      "counts": {b: stdio[b][2] for b in stdio}},
+            "nvidia_smi": ctx.get("smi_line")}
+
+
+# the verify phase: the reference's strongest oracle on the device tier.
+# VerifyDepsResolver answers every query on both the cfk walk and the
+# device resolver and raises when they differ; with frontier_exec the burn
+# also checks frontier parity every 0.7 sim-s (harness/burn.py:432).  The
+# card's run is held against the host backend's and against the same
+# backend on the CPU (the plain versions), which names its consults as the
+# card's backend does
+VERIFY = dict(kw=dict(BURN_KW, resolver="verify"), budget_s=120.0)
+
+
+def phase_verify(ctx):
+    torch = ctx["torch"]
+    from cassandra_accord_tpu_torch.config import LocalConfig
+    from cassandra_accord_tpu_torch.harness.burn import run_burn
+    from cassandra_accord_tpu_torch.harness.trace import Trace, diff_traces
+    from cassandra_accord_tpu_torch.ops import _kernels as K
+    t0 = time.perf_counter()
+    cfg = dict(resolver_kind="verify", tpu_tier="device", tpu_walk_max=0,
+               tpu_walk_width=0, tpu_service="on")
+    runs = {"host": dict(device=ctx["dev"], tpu_service_backend="host"),
+            "torch": dict(device=ctx["dev"], tpu_service_backend="torch"),
+            "cpu": dict(device="cpu", tpu_service_backend="torch")}
+    res, walls, traces = {}, {}, {}
+    for name, knobs in runs.items():
+        node_config = LocalConfig.from_env(**cfg, **knobs)
+        traces[name] = Trace()
+        kw = dict(VERIFY["kw"], tracer=traces[name].hook,
+                  node_config=node_config)
+        w0 = time.perf_counter()
+        if name == "torch":
+            with KernelRecorder(torch, K, every=10) as chk:
+                K.reset_launches()                   # just before the run
+                res[name] = run_burn(**kw)
+                sync(ctx)
+                launches = dict(K.LAUNCHES)          # just after it
+            walls[name] = time.perf_counter() - w0 - chk.check_s
+        else:
+            res[name] = run_burn(**kw)
+            walls[name] = time.perf_counter() - w0
+
+    # which tier answered is the backend's to name: the host backend
+    # answers every window on the host (native or host consults) and
+    # eagerly, the card's backend defers a window until an answer is
+    # demanded (service.py), so those counters are held against the CPU
+    # witness only
+    split = ("resolver_device_consults", "resolver_native_consults",
+             "resolver_service_batches")
+
+    def outcome(r, keep_split=False):
+        return {"ops_ok": r.ops_ok, "ops_recovered": r.ops_recovered,
+                "ops_nacked": r.ops_nacked, "ops_lost": r.ops_lost,
+                "ops_failed": r.ops_failed, "sim_micros": r.sim_micros,
+                **{k: v for k, v in sorted(r.stats.items())
+                   if k.startswith("resolver_")
+                   and (keep_split or k not in split)}}
+    for other in ("host", "cpu"):
+        div = diff_traces(traces["torch"], traces[other])
+        need(div is None, f"verify burn: the card's trace differs from the "
+             f"{other} run's:\n{div}")
+        card, want = (outcome(res[x], keep_split=other == "cpu")
+                      for x in ("torch", other))
+        need(card == want, f"verify burn: the card's outcome {card} differs "
+             f"from the {other} run's {want}")
+    card = outcome(res["torch"], keep_split=True)
+    need(card["ops_ok"] > 0 and res["torch"].resolved == VERIFY["kw"]["ops"],
+         f"verify burn resolved {res['torch'].resolved} of "
+         f"{VERIFY['kw']['ops']}")
+    need(card["resolver_device_consults"] > 0,
+         "verify burn: no device consult")
+    need(all(v > 0 for v in launches.values()),
+         f"verify burn launched {launches}")
+    need(chk.calls["deps_join"] == launches["deps_join"],
+         "verify burn: uncounted launch")
+    need(chk.checked > 0, "verify burn: no kernel call checked")
+    ctx["verify_launches"] = launches
+    seconds = time.perf_counter() - t0
+    need(seconds <= VERIFY["budget_s"],
+         f"verify phase took {seconds:.1f} s > {VERIFY['budget_s']} s")
+    return {"ops": VERIFY["kw"]["ops"], "seed": VERIFY["kw"]["seed"],
+            "outcome": card, "trace_equal_to_host": True,
+            "equal_to_cpu_witness": True,
+            "consult_split": {b: {k: res[b].stats.get(k, 0) for k in split}
+                              for b in res},
+            "wall_s": walls, "launches": launches,
+            "checked_calls": chk.checked,
+            "nvidia_smi": ctx.get("smi_line")}
 
 
 # the graph phase's shapes: txn_step at kernel shape A's widths (bench.py
@@ -1692,47 +2066,328 @@ def phase_mesh(ctx):
         "launches": launches}
 
 
-def phase_replay(ctx):
-    from cassandra_accord_tpu_torch.harness.consult_trace import (
-        record_burn, scaled_replay)
+# the replay phase: bench.py's replay stage (:1015-1046) on the port.  The
+# 6-key recording is bench.py's record_burn (seed 7, concurrency 64, 3
+# nodes, rf 3, one shard, durability, a 5 ms window) cut from 1,200 to 400
+# ops.  The wide recording is the same burn over 1,000 keys: 15% of its
+# ops are range reads of one or two ranges, each up to 500 keys wide
+# (harness/burn.py:330, :781-791), BASELINE.md config 4's range
+# transactions as protocol traffic.  Each replays through the four tiers
+# bench.py names, auto being the shipped cost model, at bench.py's walk
+# threshold (ACCORD_TPU_WALK_MAX=512, bench.py:39).  Every tier has a
+# valve on the replay's clock (the checks' seconds are off it): when it
+# closes the replay is a prefix, labelled truncated, with the events it
+# reached and the live index it held.
+REPLAY = dict(
+    record=dict(seed=7, ops=400, concurrency=64, batch_window_us=5000,
+                nodes=3, rf=3, num_shards=1, durability=True),
+    # the wide recording's largest target is 32,768 (an 8 GiB index) cut to
+    # 8,192 (0.5 GiB) for the script's time: beside an H100 80GB, at
+    # 16,384 its device tier reached 74% of the stream in its 150-s valve
+    # and its checks took 69 s more, and its host tier spent 67 s on 2
+    # queries
+    recordings=(("keys6", 6, (4096, 32768)), ("keys1000", 1000, (4096, 8192))),
+    tiers=("walk", "host", "auto", "device"),
+    index_bytes_max=8 << 30, walk_max="512", walk_sample_target=300,
+    parity_sample=5, check_every=10,
+    # the host tier's BLAS pass reads f32 mirrors of the [T, K] index;
+    # bench.py keeps them at every size (ACCORD_TPU_F32_MAX = 2^20, :1018),
+    # without them each host consult casts and transposes the index
+    f32_max=str(1 << 20),
+    # the host tier answers few queries at these sizes, so each is held
+    # against the walk
+    host_parity_sample=1,
+    valves={"walk": 30.0, "host": 30.0, "auto": 60.0, "device": 150.0},
+    # the wide recording's host tier gets a short valve; at the 6-key
+    # T = 32,768, where the host tier builds two 4 GiB mirrors and answers
+    # two queries in 65-76 s, it stops at its first query; and the wide
+    # replays are cut to prefixes for the script's time (900 s): the
+    # 6-key replays and their valves take about 330 s of it
+    valve_cuts={"keys6_T32768": {"host": 1.0},
+                "keys1000_T4096": {"host": 10.0, "auto": 15.0,
+                                   "device": 15.0},
+                "keys1000_T8192": {"host": 10.0, "auto": 20.0,
+                                   "device": 50.0}},
+    calibrations=5, budget_s=600.0)
+
+
+class _ReplayClock:
+    """consult_trace's clock with the recorder's inline checks taken off,
+    so the replay's rates and valves count replay work only."""
+
+    def __init__(self, chk):
+        self.chk = chk
+
+    def perf_counter(self):
+        return time.perf_counter() - self.chk.check_s
+
+
+class _ReadingClock:
+    """A module's clock that keeps every reading it gives."""
+
+    def __init__(self):
+        self.reads = []
+
+    def perf_counter(self):
+        self.reads.append(time.perf_counter())
+        return self.reads[-1]
+
+
+@contextlib.contextmanager
+def _replay_probe(chk, every):
+    """While installed, every ``every``-th range query (rc, mcr) a device
+    resolver answers is held against the cfk walk on the same store, as
+    VerifyDepsResolver holds it (replay_stream's own oracle checks only the
+    key queries), the checks' time going to ``chk.check_s``; and each fused
+    consult's B·T·K is seen (the cost model's input)."""
+    from cassandra_accord_tpu_torch.impl.resolver import CpuDepsResolver
+    from cassandra_accord_tpu_torch.impl.tpu_resolver import TpuDepsResolver
+    seen = {"range_calls": 0, "range_checked": 0, "consult_elems_max": 0}
+    real = {n: getattr(TpuDepsResolver, n) for n in
+            ("range_conflicts", "max_conflict_range", "_consult")}
+
+    def checked(name, sort):
+        def call(self, *args):
+            got = real[name](self, *args)
+            seen["range_calls"] += 1
+            if seen["range_calls"] % every == 0:
+                t0 = time.perf_counter()
+                want = getattr(CpuDepsResolver(self.store), name)(*args)
+                a, b = (sorted(got), sorted(want)) if sort else (got, want)
+                need(a == b, f"replay {name} differs from the cfk walk")
+                seen["range_checked"] += 1
+                chk.check_s += time.perf_counter() - t0
+            return got
+        return call
+
+    def consult(self, q, *args, **kwargs):
+        seen["consult_elems_max"] = max(seen["consult_elems_max"],
+                                        q.shape[0] * self._t * self._k)
+        return real["_consult"](self, q, *args, **kwargs)
+    TpuDepsResolver.range_conflicts = checked("range_conflicts", True)
+    TpuDepsResolver.max_conflict_range = checked("max_conflict_range", False)
+    TpuDepsResolver._consult = consult
+    try:
+        yield seen
+    finally:
+        for n, f in real.items():
+            setattr(TpuDepsResolver, n, f)
+
+
+def _width_histogram(rec):
+    """Keys per query of the recorded unit, in power-of-two buckets: a key
+    query's keys; a range query's registered keys inside its range (an
+    upper bound of its width when it ran)."""
+    keys = {k for ev in rec.unit_stream() if ev[0] == "reg" for k in ev[4]}
+    hist, widest = {}, 0
+    for ev in rec.unit_stream():
+        if ev[0] in ("kc", "mc"):
+            w = len(ev[2] if ev[0] == "kc" else ev[1])
+        elif ev[0] in ("rc", "mcr"):
+            rng = ev[2] if ev[0] == "rc" else ev[1]
+            w = sum(1 for k in keys if rng.contains(k))
+        else:
+            continue
+        bucket = 1 << max(0, w - 1).bit_length()
+        hist[f"<={bucket}"] = hist.get(f"<={bucket}", 0) + 1
+        widest = max(widest, w)
+    return {"keys_per_query": dict(sorted(hist.items(),
+                                          key=lambda kv: int(kv[0][2:]))),
+            "widest": widest}
+
+
+def _calibrations(ctx):
+    """impl/tpu_resolver.py::_calibrate_threshold run afresh a few times
+    (the cached value put back after), each run's round trip read off its
+    clock: the threshold, round trip and host elements/s of each run (the
+    threshold is their product)."""
+    from cassandra_accord_tpu_torch.impl import tpu_resolver
+    saved = dict(tpu_resolver._CALIBRATED)
+    clock = _ReadingClock()
+    runs = []
+    tpu_resolver.time = clock
+    try:
+        for _ in range(REPLAY["calibrations"]):
+            tpu_resolver._CALIBRATED.clear()
+            clock.reads = []
+            thr = tpu_resolver._calibrate_threshold(
+                ctx["torch"].device(ctx["dev"]))
+            rtt = clock.reads[1] - clock.reads[0]
+            # the threshold is max(1e6, rate x round trip)
+            runs.append({"threshold": thr, "round_trip_us": rtt * 1e6,
+                         "host_elems_per_s": thr / rtt if thr > 1e6 else None})
+    finally:
+        tpu_resolver.time = time
+        tpu_resolver._CALIBRATED.clear()
+        tpu_resolver._CALIBRATED.update(saved)
+    thr = sorted(r["threshold"] for r in runs)
+    return {"runs": runs, "threshold_min": thr[0], "threshold_max": thr[-1]}
+
+
+def _replay_tiers(ctx, rec, t_target, label):
+    """scaled_replay of ``rec`` at ``t_target`` through every tier, each
+    tier's replay_stream run between a launch-count reset and read, with a
+    KernelRecorder checking every tenth call inline and the range probe;
+    one line per tier as it ends."""
+    torch = ctx["torch"]
+    from cassandra_accord_tpu_torch.harness import consult_trace as ct
     from cassandra_accord_tpu_torch.ops import _kernels as K
-    os.environ["ACCORD_DEVICE"] = ctx["dev"]
+    real = ct.replay_stream
+    per = {}
+
+    def instrumented(events, tier, *args, **kwargs):
+        chk = KernelRecorder(torch, K, every=REPLAY["check_every"])
+        ct.time = _ReplayClock(chk)
+        env, every = {}, REPLAY["parity_sample"]
+        if tier == "host":
+            env = {"ACCORD_TPU_F32_MAX": REPLAY["f32_max"]}
+            every = kwargs["parity_sample"] = REPLAY["host_parity_sample"]
+        w0 = time.perf_counter()
+        try:
+            with chk, _replay_probe(chk, every) as seen, _environ(**env):
+                K.reset_launches()                   # just before the tier
+                r = real(events, tier, *args, **kwargs)
+                sync(ctx)
+                launches = dict(K.LAUNCHES)          # just after it
+        finally:
+            ct.time = time
+        per[tier] = dict(launches=launches, checked_calls=chk.checked,
+                         check_s=chk.check_s, probe=seen,
+                         wall_s=time.perf_counter() - w0,
+                         largest=chk.largest)
+        emit({"phase": "replay", "label": label, "tier": tier,
+              "wall_s": per[tier]["wall_s"], "queries": r.get("queries"),
+              "truncated_at_event": r.get("truncated_at_event"),
+              "events_total": len(events),
+              "final_indexed": r.get("final_indexed"),
+              "launches": launches})
+        return r
+    ct.replay_stream = instrumented
+    try:
+        out = ct.scaled_replay(
+            rec, t_target, list(REPLAY["tiers"]),
+            parity_sample=REPLAY["parity_sample"],
+            walk_sample_target=REPLAY["walk_sample_target"],
+            tier_max_seconds=dict(REPLAY["valves"],
+                                  **REPLAY["valve_cuts"].get(label, {})))
+    finally:
+        ct.replay_stream = real
+    tiers = {}
+    for tier, r in out["tiers"].items():
+        p = per[tier]
+        tiers[tier] = {
+            "queries": r.get("queries"),
+            "sampled_queries": r.get("sampled_queries"),
+            **{c: r.get(c, 0) for c in ("walk_consults", "host_consults",
+                                        "device_consults", "native_consults")},
+            "queries_per_s": r.get("queries_per_sec"),
+            "commits_equiv_per_s": r.get("commits_equiv_per_sec"),
+            "parity_checked": r.get("parity_checked", 0),
+            "range_checked": p["probe"]["range_checked"],
+            "truncated_at_event": r.get("truncated_at_event"),
+            "events_reached": r.get("truncated_at_event",
+                                    out["merged_events"]),
+            "events_total": out["merged_events"],
+            "final_indexed": r.get("final_indexed"),
+            "service_batches": r.get("service", {}).get("batches"),
+            "consult_elems_max": p["probe"]["consult_elems_max"],
+            "launches": p["launches"], "checked_calls": p["checked_calls"],
+            "check_s": p["check_s"], "wall_s": p["wall_s"]}
+    largest = {}
+    for p in per.values():
+        for name, call in p["largest"].items():
+            if call[0] >= largest.get(name, (-1,))[0]:
+                largest[name] = call
+    head = {k: out[k] for k in ("copies", "txn_capacity", "key_capacity",
+                                "merged_events", "commits_replayed")}
+    head["index_bytes"] = 2 * out["txn_capacity"] * out["key_capacity"]
+    return dict(head, t_target=t_target, label=label, tiers=tiers), largest
+
+
+def phase_replay(ctx):
+    import gc
+    from cassandra_accord_tpu_torch.harness.consult_trace import record_burn
+    from cassandra_accord_tpu_torch.impl import tpu_resolver
     t0 = time.perf_counter()
-    rec = record_burn(seed=7, ops=400, concurrency=64,
-                      batch_window_us=5000, nodes=3, rf=3, key_count=6,
-                      num_shards=1, durability=True)
-    record_s = time.perf_counter() - t0
-    K.reset_launches()
-    t0 = time.perf_counter()
-    # the host tier at this size casts the [T, K] index per query, so it
-    # gets a short valve; the device tier a longer one (prefix replay,
-    # labelled truncated, when the valve closes)
-    with KernelRecorder(ctx["torch"], K, every=0) as chk:
-        out = scaled_replay(rec, 32768, ["host", "device"], parity_sample=5,
-                            tier_max_seconds={"host": 30.0, "device": 150.0})
-    ctx["replay_checker"] = chk
-    replay_s = time.perf_counter() - t0
-    dev = out["tiers"]["device"]
-    svc = dev.get("service", {})
-    need(dev.get("device_consults", 0) > 0, "replay made no device consult")
-    need(dev.get("parity_checked", 0) > 0, "replay checked no parity")
-    launches = dict(K.LAUNCHES)
-    need(launches["deps_join"] > 0, f"replay launched no kernel: {launches}")
+    out, launches, largest = {}, {}, {}
+    with _environ(ACCORD_DEVICE=ctx["dev"],
+                  ACCORD_TPU_WALK_MAX=REPLAY["walk_max"]):
+        for name, key_count, targets in REPLAY["recordings"]:
+            w0 = time.perf_counter()
+            rec = record_burn(key_count=key_count, **REPLAY["record"])
+            rec_out = {"record_s": time.perf_counter() - w0,
+                       "unit_events": len(rec.unit_stream()),
+                       "unit_peak_live": rec.unit_peak_live(),
+                       "widths": _width_histogram(rec)}
+            if key_count > 6:
+                rec_out["calibrations"] = _calibrations(ctx)
+            emit({"phase": "replay", "recording": name, **rec_out})
+            for t_target in targets:
+                label = f"{name}_T{t_target}"
+                r, big = _replay_tiers(ctx, rec, t_target, label)
+                need(r["index_bytes"] <= REPLAY["index_bytes_max"],
+                     f"{label}: index over the bound")
+                tiers = r["tiers"]
+                for tier in set(tiers) - {"walk"}:
+                    checks = tiers[tier]["parity_checked"] + \
+                        tiers[tier]["range_checked"]
+                    need(checks > 0, f"{label}: {tier} checked no answer "
+                         f"against the walk")
+                    if tiers[tier]["launches"]["deps_join"] > 0:
+                        need(tiers[tier]["checked_calls"] > 0,
+                             f"{label}: {tier} checked no kernel call")
+                    if key_count == 6:
+                        need(tiers[tier]["parity_checked"] > 0,
+                             f"{label}: {tier} parity_checked 0")
+                need(tiers["device"]["device_consults"] > 0 and
+                     all(v > 0 for v in tiers["device"]["launches"].values()),
+                     f"{label}: the device tier made no device consult")
+                r["calibrated"] = dict(tpu_resolver._CALIBRATED)
+                if key_count > 6:
+                    # the cost model sends a consult to the card when its
+                    # B*T*K reaches the threshold it calibrated; at T=4,096
+                    # a one-row consult (8,192 x 8,192 = 6.7e7 elements)
+                    # sits at an H100 80GB's threshold (6.4e7 to 1.1e8
+                    # across processes), so there the routing may keep
+                    # every wide query on the host, and then only because
+                    # each consult was below the threshold; at the largest
+                    # T it must not
+                    auto = tiers["auto"]
+                    below = auto["consult_elems_max"] < min(
+                        r["calibrated"].values(), default=0.0)
+                    need(auto["device_consults"] > 0 or
+                         (below and t_target < targets[-1]),
+                         f"{label}: the cost model sent no wide query to the "
+                         f"card (threshold {r['calibrated']}, widest B*T*K "
+                         f"{auto['consult_elems_max']})")
+                emit({"phase": "replay", **r})
+                out[label] = r
+                for tier, x in tiers.items():
+                    for kname, n in x["launches"].items():
+                        launches.setdefault(kname, {})[f"{label}_{tier}"] = n
+                path = "replay" if key_count == 6 else "replay_wide"
+                for kname, call in big.items():
+                    if call[0] >= largest.get(path, {}).get(kname, (-1,))[0]:
+                        largest.setdefault(path, {})[kname] = call
+                del big
+                gc.collect()
+            del rec
     ctx["replay_launches"] = launches
-    return {"record_s": record_s, "replay_s": replay_s,
-            "copies": out["copies"], "txn_capacity": out["txn_capacity"],
-            "key_capacity": out["key_capacity"],
-            "index_bytes_int8": 2 * out["txn_capacity"] * out["key_capacity"],
-            "final_indexed": dev.get("final_indexed"),
-            "queries": dev.get("queries"),
-            "device_consults": dev.get("device_consults"),
-            "parity_checked": dev.get("parity_checked"),
-            "truncated_at_event": dev.get("truncated_at_event"),
-            "events_total": dev.get("events_total", out["merged_events"]),
-            "device_queries_per_s": dev.get("queries_per_sec"),
-            "host_queries_per_s": out["tiers"]["host"].get("queries_per_sec"),
-            "service_batches": svc.get("batches"),
-            "launches": launches}
+    ctx["replay_largest"] = largest
+    seconds = time.perf_counter() - t0
+    need(seconds <= REPLAY["budget_s"],
+         f"replay phase took {seconds:.1f} s > {REPLAY['budget_s']} s")
+    return {"replays": {k: {"t_target": v["t_target"],
+                            "txn_capacity": v["txn_capacity"],
+                            "key_capacity": v["key_capacity"],
+                            "tiers": {t: {c: x[c] for c in (
+                                "walk_consults", "host_consults",
+                                "device_consults", "events_reached",
+                                "events_total", "final_indexed")}
+                                for t, x in v["tiers"].items()}}
+                        for k, v in out.items()},
+            "calibrated": dict(tpu_resolver._CALIBRATED),
+            "launches": launches, "nvidia_smi": ctx.get("smi_line")}
 
 
 ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1742,18 +2397,23 @@ ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
 
 def kernels_line(ctx):
     """One entry per kernel: the main path's (the burn's) launch count and
-    the numbers at the largest call it made, and the graph, mesh and cli
-    paths' launch counts (the mesh's summed over its ranks, the cli's over
-    its seeds' runs on the card's backend); every other measured
-    shape (the full-size synthetic ones, the replay's and the cli runs'
+    the numbers at the largest call it made, and the other paths' launch
+    counts: graph, mesh (summed over its ranks), cli and maelstrom (summed
+    over their runs on the card's backend), the Maelstrom binary's (as its
+    process reported them), verify, and the replays' per
+    recording, target and tier; every other measured
+    shape (the full-size synthetic ones, the replays' and the cli runs'
     largest calls, the full-width txn_step's K1 call, a mesh rank's calls)
     under ``shapes``,
     none of them launched on the main path."""
-    for key, path in (("burn_checker", "burn"), ("replay_checker", "replay")):
-        chk = ctx.get(key)
-        if chk is not None:
-            for name, (_size, args, kwargs) in sorted(chk.largest.items()):
-                measure(ctx, name, f"{path}_largest", args, kwargs, 20, path)
+    largest = dict(ctx.get("replay_largest", {}))
+    if ctx.get("burn_checker") is not None:
+        largest["burn"] = ctx["burn_checker"].largest
+    for path in ("burn", "replay", "replay_wide"):
+        for name, (_size, args, kwargs) in sorted(largest.get(path,
+                                                              {}).items()):
+            measure(ctx, name, f"{path}_largest", args, kwargs, 20, path)
+    ctx.pop("replay_largest", None)
     for name, (_size, args, kwargs) in sorted(ctx.get("cli_largest",
                                                       {}).items()):
         measure(ctx, name, "cli_largest", args, kwargs, 20, "cli")
@@ -1781,10 +2441,15 @@ def kernels_line(ctx):
         e = {"name": name, "route": "cuda", "source": SOURCE,
              "replaces": REPLACES[name],
              "launches": ctx.get("burn_launches", {}).get(name, 0),
-             "replay_launches": ctx.get("replay_launches", {}).get(name, 0),
+             "replay_launches": ctx.get("replay_launches", {}).get(name, {}),
              "graph_launches": ctx.get("graph_launches", {}).get(name, 0),
              "mesh_launches": ctx.get("mesh_launches", {}).get(name, 0),
-             "cli_launches": ctx.get("cli_launches", {}).get(name, 0)}
+             "cli_launches": ctx.get("cli_launches", {}).get(name, 0),
+             "maelstrom_launches":
+                 ctx.get("maelstrom_launches", {}).get(name, 0),
+             "maelstrom_stdio_launches":
+                 ctx.get("maelstrom_stdio_launches", {}).get(name, 0),
+             "verify_launches": ctx.get("verify_launches", {}).get(name, 0)}
         e.update({k: head[k] for k in ROW_KEYS})
         e["shapes"] = [dict({k: r[k] for k in ROW_KEYS}, main_path_launches=0)
                        for r in rows if r is not head]
@@ -1825,6 +2490,7 @@ def main(argv=None) -> int:
                     "max_conflict": _kernels.max_conflict}}
     fns = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
            "service": phase_service, "burn": phase_burn, "cli": phase_cli,
+           "maelstrom": phase_maelstrom, "verify": phase_verify,
            "graph": phase_graph, "mesh": phase_mesh, "replay": phase_replay}
     t_all = time.perf_counter()
     for name in PHASES:

@@ -38,6 +38,13 @@ CASES = {
         303, dict(resolver="tpu", batch_window_us=5000, frontier_exec=True,
                   audit="strict", delayed_stores=True, **HOSTILE),
         dict(DEVICE, tpu_service="on")),
+    # (e) the verify resolver: every answer checked against the cfk walk,
+    # frontier parity every 0.7 sim-s; bench.py's replay recording shape
+    "verify_frontier": (
+        7, dict(resolver="verify", ops=40, concurrency=64, nodes=3, rf=3,
+                key_count=6, num_shards=1, durability=True,
+                batch_window_us=5000, frontier_exec=True),
+        dict(DEVICE, resolver_kind="verify", tpu_service="on")),
 }
 
 OUTCOME = ("ops_ok", "ops_recovered", "ops_nacked", "ops_lost", "ops_failed",
@@ -67,8 +74,9 @@ def test_same_seed_burn_equals_reference(case, monkeypatch):
     assert port.resolved == burn_kw["ops"]
     if cfg_kw:
         assert port.stats.get("resolver_device_consults", 0) > 0
-        assert port.stats.get("resolver_device_consults") == \
-            ref.stats.get("resolver_device_consults")
+        assert {k: v for k, v in port.stats.items()
+                if k.startswith("resolver_")} == \
+            {k: v for k, v in ref.stats.items() if k.startswith("resolver_")}
     if burn_kw.get("frontier_exec"):
         # the port's release frontier ran, on the device it was asked for
         assert frontier_calls and set(map(str, frontier_calls)) == {"cpu"}

@@ -340,3 +340,33 @@ def test_two_gloo_ranks_on_the_card_equal_single_card(cuda):
         assert np.array_equal(cons["global_max"], res[0].value[1]["global_max"])
     best = ld.host_lex_max(lanes.transpose(1, 0, 2), np.ones((b, 2), bool))
     assert np.array_equal(res[0].value[1]["global_max"], best)
+
+
+def test_calibrated_threshold_on_card_is_finite(cuda):
+    """The shipped cost model's threshold, measured on the card: one consult
+    round trip through K1/K2 times the host tier's element rate."""
+    import math
+    from cassandra_accord_tpu_torch.impl import tpu_resolver
+    got = tpu_resolver._calibrate_threshold(cuda)
+    assert math.isfinite(got) and got >= 1e6
+    assert tpu_resolver._CALIBRATED[str(cuda)] == got
+
+
+def test_maelstrom_workload_on_card_equals_cpu(cuda, monkeypatch):
+    """A 3-node, 20-op Maelstrom run with the device tier through the
+    service: on the card (K1/K2 launched) equal to the same run on the
+    CPU."""
+    from cassandra_accord_tpu_torch.maelstrom.runner import run_workload
+    for k, v in dict(ACCORD_RESOLVER="tpu", ACCORD_TPU_TIER="device",
+                     ACCORD_TPU_WALK_MAX="0", ACCORD_TPU_WALK_WIDTH="0",
+                     ACCORD_TPU_SERVICE="on").items():
+        monkeypatch.setenv(k, v)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        monkeypatch.setenv("ACCORD_DEVICE", dev)
+        _kernels.reset_launches()
+        out[dev] = run_workload(1, n_nodes=3, ops=20,
+                                partition_interval_s=None)
+        launches = dict(_kernels.LAUNCHES)
+    assert out["cuda"] == out["cpu"]
+    assert launches["deps_join"] > 0 and launches["max_conflict"] > 0
