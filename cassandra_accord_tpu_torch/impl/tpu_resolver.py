@@ -1431,3 +1431,23 @@ def _calibrate_threshold(device) -> float:
         / (time.perf_counter() - t0)
     _CALIBRATED[key] = max(1e6, host_rate * rtt)
     return _CALIBRATED[key]
+
+
+def warm_device_tier(config, kind: str) -> None:
+    """Pay the device tier's one-time start-up now: the torch import, the
+    device's context, the kernel library and the consult path's first use.
+    The cost model's calibration does all of that (one small index uploaded,
+    both kernels launched twice) and caches its threshold for every
+    resolver.  A server on real time calls this before it takes requests:
+    paid inside its first consult, these seconds stall its event loop past
+    its own message timeouts.  ``kind`` is the node's resolver; nothing is
+    paid where no consult reaches the device: another resolver, the host or
+    walk tier, or a forced device tier whose consult service answers on the
+    host."""
+    host_service = config.tpu_service != "off" \
+        and config.tpu_service_backend == "host"
+    if kind in ("tpu", "verify") and (
+            config.tpu_tier == "auto"
+            or (config.tpu_tier == "device" and not host_service)):
+        from ..device import resolve_device
+        _calibrate_threshold(resolve_device(config.device))

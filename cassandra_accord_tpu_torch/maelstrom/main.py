@@ -95,6 +95,10 @@ def main() -> None:
             node = MaelstromNode(
                 body["node_id"], body["node_ids"], emit, scheduler,
                 now_micros=lambda: int(time.time() * 1e6))
+            # the device tier's start-up before init_ok, not inside the
+            # first consult, where it would time out every request in flight
+            from ..impl.tpu_resolver import warm_device_tier
+            warm_device_tier(node.node.config, node.node.resolver_kind)
             client_reply(packet, {"type": "init_ok"})
         elif node is not None:
             node.handle(packet, client_reply)

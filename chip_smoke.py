@@ -51,7 +51,9 @@ Phases, one JSON line each; any failure exits non-zero:
             Maelstrom user runs, through runpy so that it reports its
             launches and device consults at exit) fed 33 txns: its replies
             equal the same binary's on the host backend, exit 0, no
-            traceback, launches and device consults on the card;
+            traceback, launches and device consults on the card (two of
+            each kernel's launches its warm-up on init), none on the host
+            backend;
 8. verify   the verify resolver (every answer checked against the cfk walk,
             frontiers every 0.7 sim-s) on a seed-7 300-op burn with the
             device tier through the service on the card: it completes, its
@@ -88,6 +90,16 @@ Phases, one JSON line each; any failure exits non-zero:
             the cost model's calibrated threshold (five calibrations) and
             its routing split, K1/K2 launches per replay, every tenth call
             checked against the plain version.
+12. bench   the port's bench (bench_torch.py): ``--smoke`` in a subprocess
+            (exit 0, the tail contract, the card named in its last line),
+            then its kernel, service, deps_graph and graph stages in process
+            at the smallest sizes bench.py uses (bench_kernel(4096),
+            bench_service(8192), bench_deps_graph(ts=(1024,)),
+            bench_graph(t=8192, iters=1)), each holding every answer
+            against the host tier or the edge twins; K1/K2 launches counted
+            around them, every tenth call checked against the plain version
+            (the checks sit inside the stages' timed regions, so the rates
+            this phase prints are not the bench's).
 
 Then the card's nvidia-smi line, one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Without CUDA, or run from a directory
@@ -109,7 +121,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(os.getcwd(), "chiprun_out")
 PHASES = ("env", "build", "kernels", "service", "burn", "cli", "maelstrom",
-          "verify", "graph", "mesh", "replay")
+          "verify", "graph", "mesh", "replay", "bench")
 
 # H100 SXM data sheet (NVIDIA), dense rates at the 700 W limit: HBM3 at
 # 3.35 TB/s; 67 TFLOP/s FP32 on the CUDA cores, the rate class the consult
@@ -396,6 +408,15 @@ class KernelRecorder:
     def __exit__(self, *exc):
         self.k.deps_join = self.real["deps_join"]
         self.k.max_conflict = self.real["max_conflict"]
+
+
+def _keep_largest(ctx, path, chk) -> None:
+    """Keep ``chk``'s largest call per kernel as ``path``'s (over several
+    runs, the largest), for timing at the path's own shape afterwards."""
+    kept = ctx.setdefault("largest", {}).setdefault(path, {})
+    for name, call in chk.largest.items():
+        if call[0] >= kept.get(name, (-1,))[0]:
+            kept[name] = call
 
 
 # ---------------------------------------------------------------------------
@@ -983,7 +1004,8 @@ def phase_cli(ctx):
 # the maelstrom phase: the Maelstrom adapter (maelstrom/, carried from the
 # reference) on the device tier.  MaelstromNode builds its Node without a
 # config, so the tier is set only through the environment (LocalConfig.
-# from_env).  The in-process runs are tests/test_maelstrom.py's shapes
+# from_env); the binary's main.py adds only the device tier's warm-up on
+# init.  The in-process runs are tests/test_maelstrom.py's shapes
 # (:133-148) at 100 ops instead of 40; the stdio binary gets that file's
 # three packets (:155-163) and 30 more list-append txns on 4 keys
 MAELSTROM = dict(runs=((1, 3, None), (2, 5, 1.5), (9, 5, 1.5)), ops=100,
@@ -1170,6 +1192,7 @@ def phase_maelstrom(ctx):
         need(chk.calls["deps_join"] == launches["deps_join"],
              f"maelstrom {label}: uncounted launch")
         need(consults > 0, f"maelstrom {label}: no device consult")
+        _keep_largest(ctx, "maelstrom", chk)
         checked = chk.checked
         need(checked > 0, f"maelstrom {label}: no kernel call checked")
         for name in totals:
@@ -1197,6 +1220,10 @@ def phase_maelstrom(ctx):
             need(all(v > 0 for v in counts["launches"].values())
                  and counts["device_consults"] > 0,
                  f"stdio binary on the card: {counts}")
+        else:
+            need(not any(counts["launches"].values())
+                 and counts["device_consults"] == 0,
+                 f"stdio binary on the host backend used the card: {counts}")
         stdio[backend] = (replies, wall, counts)
     strip = ("msg_id",)      # numbered in reply order, which may differ
 
@@ -1204,8 +1231,11 @@ def phase_maelstrom(ctx):
         return {k: {f: v for f, v in b.items() if f not in strip}
                 for k, b in replies.items()}
     card, host = bodies(stdio["torch"][0]), bodies(stdio["host"][0])
+    differ = sorted(k for k in host if card.get(k) != host[k])
     need(card == host, "stdio binary: the card's replies differ from the "
-         f"host backend's: {sorted(k for k in host if card.get(k) != host[k])}")
+         f"host backend's: {differ}; the first, card "
+         f"{card.get(differ[0]) if differ else None} against host "
+         f"{host.get(differ[0]) if differ else None}")
     types = {}
     for b in card.values():
         types[b["type"]] = types.get(b["type"], 0) + 1
@@ -1302,6 +1332,7 @@ def phase_verify(ctx):
          "verify burn: uncounted launch")
     need(chk.checked > 0, "verify burn: no kernel call checked")
     ctx["verify_launches"] = launches
+    _keep_largest(ctx, "verify", chk)
     seconds = time.perf_counter() - t0
     need(seconds <= VERIFY["budget_s"],
          f"verify phase took {seconds:.1f} s > {VERIFY['budget_s']} s")
@@ -2390,6 +2421,67 @@ def phase_replay(ctx):
             "launches": launches, "nvidia_smi": ctx.get("smi_line")}
 
 
+# the bench phase: bench_torch.py's smoke as a user runs it, then the
+# stages that launch the card's kernels at the smallest sizes bench.py gives
+# them (bench.py :1091, :1077, :1011 with ts=(1024,), :378 with one iter)
+BENCH = dict(smoke_timeout_s=150, check_every=10, budget_s=120.0,
+             calls=(("bench_kernel", (4096,), {}),
+                    ("bench_service", (8192,), {}),
+                    ("bench_deps_graph", (), {"ts": (1024,)}),
+                    ("bench_graph", (), {"t": 8192, "iters": 1})))
+
+
+def phase_bench(ctx):
+    torch = ctx["torch"]
+    from cassandra_accord_tpu_torch.ops import _kernels as K
+    t0 = time.perf_counter()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    env = dict(os.environ, ACCORD_BENCH_DEADLINE_S="150",
+               ACCORD_BENCH_HISTORY=os.path.join(OUT_DIR,
+                                                 "bench_smoke_history.jsonl"))
+    env.pop("ACCORD_DEVICE", None)          # the card, as a user runs it
+    proc = subprocess.run([sys.executable, os.path.join(HERE, "bench_torch.py"),
+                           "--smoke"], capture_output=True, text=True,
+                          timeout=BENCH["smoke_timeout_s"], env=env, cwd=HERE)
+    smoke_s = time.perf_counter() - t0
+    lines = [x for x in proc.stdout.splitlines() if x.strip()]
+    need(proc.returncode == 0 and lines,
+         f"bench_torch.py --smoke exited {proc.returncode}:\n"
+         f"{proc.stdout[-1500:]}\n{proc.stderr[-1500:]}")
+    tail = json.loads(lines[-1])
+    need(isinstance(tail, dict) and len(lines[-1]) < 4096,
+         "bench_torch.py --smoke: the last line is not one compact object")
+    need(tail.get("stages") == {"smoke": "ok"} and tail["incomplete"] is False
+         and tail["metric"] == "smoke_commit_latency_mean_us"
+         and tail["value"] > 0, f"bench_torch.py --smoke tail: {tail}")
+    name = torch.cuda.get_device_name(0)
+    need((tail.get("device") or {}).get("name") == name,
+         f"bench_torch.py --smoke tail names {tail.get('device')}, not {name}")
+    import bench_torch
+    out, walls = {}, {}
+    K.reset_launches()                       # just before the stages
+    with KernelRecorder(torch, K, every=BENCH["check_every"]) as chk:
+        for fn, args, kwargs in BENCH["calls"]:
+            w0 = time.perf_counter()
+            out[fn] = getattr(bench_torch, fn)(*args, **kwargs)
+            walls[fn] = time.perf_counter() - w0
+        sync(ctx)
+        launches = dict(K.LAUNCHES)          # just after them
+    need(all(v > 0 for v in launches.values()), f"bench launched {launches}")
+    need(chk.calls["deps_join"] == launches["deps_join"],
+         "bench: uncounted launch")
+    need(chk.checked > 0, "bench: no kernel call checked")
+    ctx["bench_launches"] = launches
+    _keep_largest(ctx, "bench", chk)
+    seconds = time.perf_counter() - t0
+    need(seconds <= BENCH["budget_s"],
+         f"bench phase took {seconds:.1f} s > {BENCH['budget_s']} s")
+    return {"smoke": {"wall_s": smoke_s, "tail": tail},
+            "stages": out, "wall_s": walls, "launches": launches,
+            "checked_calls": chk.checked, "check_s": chk.check_s,
+            "nvidia_smi": ctx.get("smi_line")}
+
+
 ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "warm_ms", "method_floor_ms", "wrapper_host_us", "shape", "path", "B",
             "T", "K", "nnz", "packed")
@@ -2400,11 +2492,11 @@ def kernels_line(ctx):
     the numbers at the largest call it made, and the other paths' launch
     counts: graph, mesh (summed over its ranks), cli and maelstrom (summed
     over their runs on the card's backend), the Maelstrom binary's (as its
-    process reported them), verify, and the replays' per
+    process reported them), verify, bench, and the replays' per
     recording, target and tier; every other measured
-    shape (the full-size synthetic ones, the replays' and the cli runs'
-    largest calls, the full-width txn_step's K1 call, a mesh rank's calls)
-    under ``shapes``,
+    shape (the full-size synthetic ones, the replays', the cli, Maelstrom,
+    verify and bench runs' largest calls, the full-width txn_step's K1 call, a
+    mesh rank's calls) under ``shapes``,
     none of them launched on the main path."""
     largest = dict(ctx.get("replay_largest", {}))
     if ctx.get("burn_checker") is not None:
@@ -2417,6 +2509,10 @@ def kernels_line(ctx):
     for name, (_size, args, kwargs) in sorted(ctx.get("cli_largest",
                                                       {}).items()):
         measure(ctx, name, "cli_largest", args, kwargs, 20, "cli")
+    for path in ("maelstrom", "verify", "bench"):
+        for name, (_size, args, kwargs) in sorted(
+                ctx.get("largest", {}).get(path, {}).items()):
+            measure(ctx, name, f"{path}_largest", args, kwargs, 20, path)
     if ctx.get("graph_join") is not None:
         args, kwargs = ctx["graph_join"]
         measure(ctx, "deps_join", "graph_step_T{T}_K{K}_B{B}".format(**GRAPH),
@@ -2449,7 +2545,8 @@ def kernels_line(ctx):
                  ctx.get("maelstrom_launches", {}).get(name, 0),
              "maelstrom_stdio_launches":
                  ctx.get("maelstrom_stdio_launches", {}).get(name, 0),
-             "verify_launches": ctx.get("verify_launches", {}).get(name, 0)}
+             "verify_launches": ctx.get("verify_launches", {}).get(name, 0),
+             "bench_launches": ctx.get("bench_launches", {}).get(name, 0)}
         e.update({k: head[k] for k in ROW_KEYS})
         e["shapes"] = [dict({k: r[k] for k in ROW_KEYS}, main_path_launches=0)
                        for r in rows if r is not head]
@@ -2491,7 +2588,8 @@ def main(argv=None) -> int:
     fns = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
            "service": phase_service, "burn": phase_burn, "cli": phase_cli,
            "maelstrom": phase_maelstrom, "verify": phase_verify,
-           "graph": phase_graph, "mesh": phase_mesh, "replay": phase_replay}
+           "graph": phase_graph, "mesh": phase_mesh, "replay": phase_replay,
+           "bench": phase_bench}
     t_all = time.perf_counter()
     for name in PHASES:
         if name not in phases:

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import bench_torch
 from cassandra_accord_tpu_torch.entry import entry
 from cassandra_accord_tpu_torch.models import conflict_graph as cg
 from cassandra_accord_tpu_torch.ops import _kernels
@@ -370,3 +371,13 @@ def test_maelstrom_workload_on_card_equals_cpu(cuda, monkeypatch):
         launches = dict(_kernels.LAUNCHES)
     assert out["cuda"] == out["cpu"]
     assert launches["deps_join"] > 0 and launches["max_conflict"] > 0
+
+
+def test_bench_kernel_on_card_equals_host_tier(cuda, monkeypatch):
+    """bench_torch.py's kernel stage at its smallest size on the card: every
+    batch's device answer (deps mask and max lanes) equals the host tier's
+    on the same batch, or the stage raises."""
+    monkeypatch.delenv("ACCORD_DEVICE", raising=False)
+    out = bench_torch.bench_kernel(4096)
+    assert out["answers_checked"] == 20 * 256
+    assert out["device_queries_per_sec"] > 0

@@ -64,13 +64,14 @@ def test_run_workload_on_device_tier_equals_reference(seed, nodes, partitions,
     assert calls["deps_join"] > 0 and calls["max_conflict"] > 0
 
 
-def _stdio(env):
-    """The binary on STDIO_PACKETS under ``env`` (no other ACCORD_ setting
-    of this process): (the process, reply bodies by in_reply_to)."""
+def _stdio(env, packets=STDIO_PACKETS,
+           argv=("-m", "cassandra_accord_tpu_torch.maelstrom")):
+    """The binary on ``packets`` under ``env`` (no other ACCORD_ setting of
+    this process): (the process, reply bodies by in_reply_to)."""
     base = {k: v for k, v in os.environ.items() if not k.startswith("ACCORD_")}
     proc = subprocess.run(
-        [sys.executable, "-m", "cassandra_accord_tpu_torch.maelstrom"],
-        input="".join(json.dumps(p) + "\n" for p in STDIO_PACKETS),
+        [sys.executable, *argv],
+        input="".join(json.dumps(p) + "\n" for p in packets),
         capture_output=True, text=True, timeout=120, cwd=ROOT,
         env=dict(base, **env))
     replies = [json.loads(x) for x in proc.stdout.splitlines()
@@ -105,3 +106,35 @@ def test_stdio_binary_without_cpu_request_never_answers_from_the_cpu():
     assert not any(b.get("type") == "txn_ok" for b in by_reply.values())
     assert proc.returncode != 0 or all(
         by_reply.get(i, {}).get("type") == "error" for i in (2, 3))
+
+
+# the binary run through runpy, reporting at exit which devices the cost
+# model has calibrated (the device tier's warm-up)
+CALIBRATED_MAIN = """
+import atexit, runpy, sys
+from cassandra_accord_tpu_torch.impl import tpu_resolver as R
+atexit.register(lambda: print("CALIBRATED", sorted(R._CALIBRATED),
+                              file=sys.stderr))
+runpy.run_module("cassandra_accord_tpu_torch.maelstrom", run_name="__main__",
+                 alter_sys=True)
+"""
+
+
+@pytest.mark.parametrize("env,calibrated", [
+    ({}, "['cpu']"),
+    ({"ACCORD_TPU_TIER": "host"}, "[]"),
+    ({"ACCORD_TPU_SERVICE_BACKEND": "host"}, "[]")],
+    ids=["device_tier", "host_tier", "host_backed_service"])
+def test_stdio_binary_warms_the_device_tier_at_init(env, calibrated):
+    """On ``init`` alone, before any txn, the binary pays the device tier's
+    start-up (the cost model's calibration round trip); where no consult
+    reaches the device it pays none.  Paid inside the first consult, that
+    start-up stalled the real-time loop past the 1-s reply timeout and
+    failed every txn in flight."""
+    proc, by_reply = _stdio(dict(DEVICE_TIER, **env, ACCORD_DEVICE="cpu",
+                                 OMP_NUM_THREADS="1"),
+                            packets=STDIO_PACKETS[:1],
+                            argv=("-c", CALIBRATED_MAIN))
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert by_reply[1]["type"] == "init_ok"
+    assert f"CALIBRATED {calibrated}" in proc.stderr.splitlines()
