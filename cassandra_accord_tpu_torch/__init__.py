@@ -16,7 +16,9 @@ same code; the device plane is rewritten:
                       ``pallas_join``), the closure/SCC/Kahn graph ops and
                       the edge-frontier tier in torch; ``ops/_kernels``
                       builds and launches the CUDA kernels of
-                      ``csrc/consult.cu`` (K1 deps join, K2 max conflict);
+                      ``csrc/consult.cu`` (K1 deps join, K2 max conflict:
+                      the CSR form) and ``csrc/dense_join.cu`` (K1d, K2d:
+                      the dense tensor-core form, for wide rows);
 - ``models``          the conflict-graph model (``txn_step``: witness,
                       stabilise, one execution wave; its join is K1);
 - ``parallel``        the multi-device data plane over torch.distributed,

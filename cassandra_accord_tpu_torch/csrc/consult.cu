@@ -82,8 +82,9 @@
 // incidence rows the batch names, the slot data, the query and the output)
 // but the time goes to issuing the per-(row, slot) epilogue.  Wide rows
 // (1,024 keys per row) are bound by re-reading nnz*T incidence bytes
-// through L2/HBM, which the dense int8 tensor-core form (not written yet)
-// would avoid.  __launch_bounds__(256, 2) caps the registers at 128 per
+// through L2/HBM; dense_join.cu holds the dense int8 tensor-core form that
+// reads each index byte once, and ops/_kernels.py::join_form picks it for
+// such rows.  __launch_bounds__(256, 2) caps the registers at 128 per
 // thread; ptxas (-Xptxas -v) reports 103 to 128 for the eight
 // instantiations and no spills.
 //
@@ -94,9 +95,10 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
-constexpr int kLanes = 5;
 constexpr int kSlots = 8;                        // slots per thread
 constexpr int kMaxThreads = 256;                 // threads per block, at most
 constexpr int kMaxWarps = kMaxThreads / 32;
@@ -107,7 +109,6 @@ constexpr int kBlocksPerSM = 2;                  // grid target (128 registers)
 constexpr int kStage = 4096;                     // CSR columns staged per chunk
 constexpr int kLead = 2;                         // keys per row loaded together
 constexpr int kBurst = 8;                        // loads per burst of a wide row
-constexpr unsigned kFull = 0xffffffffu;
 constexpr uint64_t kByteLows = 0x0101010101010101ULL;
 
 template <int R>
@@ -115,44 +116,6 @@ struct CsrStage {
   int32_t off[R + 1];                            // offsets[b0 .. b0 + nrows]
   int32_t cols[kStage];                          // columns [c0, c1), -1 = dropped
 };
-
-// a < b, lexicographically over the lanes (no branches)
-__device__ __forceinline__ bool lex_less(const int32_t* a, const int32_t* b) {
-  bool lt = false, eq = true;
-#pragma unroll
-  for (int l = 0; l < kLanes; ++l) {
-    lt = lt | (eq & (a[l] < b[l]));
-    eq = eq & (a[l] == b[l]);
-  }
-  return lt;
-}
-
-// best = max(best, cand) lexicographically, where `take` allows it
-__device__ __forceinline__ void take_max(int32_t* best, const int32_t* cand,
-                                         bool take = true) {
-  const bool up = take & lex_less(best, cand);
-#pragma unroll
-  for (int l = 0; l < kLanes; ++l) best[l] = up ? cand[l] : best[l];
-}
-
-// The lexicographic max over the warp of one candidate per lane (lanes
-// >= 0; -1 lanes for none), lane by lane: the warp's max of the lane over
-// the candidates still tied, then only those that reach it stay.  Zero
-// lanes when no lane has a candidate.  Every lane gets the result.
-__device__ __forceinline__ void warp_lex_max(const int32_t* mine,
-                                             int32_t* best) {
-  bool tied = true;
-#pragma unroll
-  for (int l = 0; l < kLanes; ++l) {
-    const int32_t top = __reduce_max_sync(kFull, tied ? mine[l] : -1);
-    tied = tied & (mine[l] == top);
-    best[l] = max(top, 0);
-  }
-}
-
-__device__ __forceinline__ int clamp_kind(int k, int n) {
-  return k < 0 ? 0 : (k >= n ? n - 1 : k);
-}
 
 // bit i = bit 8i of x
 __device__ __forceinline__ uint32_t gather_bytes(uint64_t x) {
@@ -165,17 +128,6 @@ __device__ __forceinline__ uint32_t byte_mask(uint64_t x) {
   x |= x >> 2;
   x |= x >> 1;
   return gather_bytes(x);
-}
-
-// the 8x8 bit matrix transposed: bit 8a + b -> bit 8b + a
-__device__ __forceinline__ uint64_t transpose8(uint64_t x) {
-  uint64_t t = (x ^ (x >> 7)) & 0x00AA00AA00AA00AAULL;
-  x ^= t ^ (t << 7);
-  t = (x ^ (x >> 14)) & 0x0000CCCC0000CCCCULL;
-  x ^= t ^ (t << 14);
-  t = (x ^ (x >> 28)) & 0x00000000F0F0F0F0ULL;
-  x ^= t ^ (t << 28);
-  return x;
 }
 
 // The incidence bytes of this thread's slots [t0, t0 + nvalid) in key row c,
@@ -534,24 +486,6 @@ struct Geometry {
   int groups;
 };
 
-constexpr int kMaxDevices = 64;
-
-cudaError_t sm_count(int* sms) {
-  static int cached[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices && cached[dev] > 0) {
-    *sms = cached[dev];
-    return cudaSuccess;
-  }
-  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  if (*sms <= 0) return cudaErrorInvalidDevice;
-  if (dev < kMaxDevices) cached[dev] = *sms;
-  return cudaSuccess;
-}
-
 cudaError_t geometry(int B, int T, Geometry* g) {
   int sms = 0;
   const cudaError_t err = sm_count(&sms);
@@ -615,7 +549,8 @@ int deps_join_launch(const void* inc, const void* txn_id, const void* kind,
   const cudaError_t err = geometry(B, T, &g);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec8 = (T % kSlots) == 0;
+  // 8-byte loads need every key row 8-byte aligned
+  const bool vec8 = T % kSlots == 0 && (reinterpret_cast<uintptr_t>(inc) & 7) == 0;
   if (g.rows == kRows) {
     deps_join_run<kRows>(g, s, vec8, inc, txn_id, kind, status, active,
                          offsets, cols, before, qkind, wit_bits, n_kinds,
@@ -652,7 +587,8 @@ int max_conflict_launch(const void* inc, const void* ts, const void* txn_id,
     err = cudaMemsetAsync(scratch, 0, g.groups * sizeof(unsigned int), s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const bool vec8 = (T % kSlots) == 0;
+  // 8-byte loads need every key row 8-byte aligned
+  const bool vec8 = T % kSlots == 0 && (reinterpret_cast<uintptr_t>(inc) & 7) == 0;
   if (g.rows == kRows) {
     max_conflict_run<kRows>(g, s, vec8, inc, ts, txn_id, active, offsets, cols,
                             B, T, K, scratch, out);

@@ -14,8 +14,10 @@ directly:
   nothing; flat padding past ``offsets[B]`` is never read.
 
 K1 (``deps_join``) answers the deps half and K2 (``max_conflict``) the max
-half: the CUDA kernels for CUDA buffers, their plain torch versions (which
-densify the query with an int32 scatter-add) for CPU buffers.  With
+half: the CUDA kernels for CUDA buffers (the CSR or the dense form, by
+``_kernels.join_form`` from the window's sizes unless ``form`` says),
+their plain torch versions (which densify the query with an int32
+scatter-add) for CPU buffers.  With
 ``packed`` the deps mask comes back bit-packed ``[B, T/8]`` uint8,
 little-endian.
 """
@@ -30,11 +32,12 @@ from ..ops import _kernels
 
 def ragged_consult_t(live_T, key_T, ts, txn_id, kind, status, active,
                      flat_cols, offsets, before, qkind,
-                     packed: bool = False
+                     packed: bool = False, form: str = "auto"
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(deps [B, T] bool or [B, T/8] uint8, max_lanes [B, 5] int32)."""
     deps = _kernels.deps_join(live_T, txn_id, kind, status, active, offsets,
-                              flat_cols, before, qkind, packed=packed)
+                              flat_cols, before, qkind, packed=packed,
+                              form=form)
     max_lanes = _kernels.max_conflict(key_T, ts, txn_id, active, offsets,
-                                      flat_cols)
+                                      flat_cols, form=form)
     return deps, max_lanes

@@ -1,21 +1,45 @@
-"""Build, load and launch the hand-written consult kernels (csrc/consult.cu).
+"""Build, load and launch the hand-written consult kernels (csrc/).
 
 K1 ``deps_join`` is the port of the TPU join kernel
 (cassandra_accord_tpu/ops/pallas_join.py::_join_kernel); K2 ``max_conflict``
-is the timestamp-proposal half of the same consult.  The source's header
-says what each computes and what bounds it on the H100.
+is the timestamp-proposal half of the same consult.  Each has two forms,
+hand-written CUDA for sm_90a, with the same arguments and answers:
 
-Build: ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into a
-shared library with a plain C interface, at first use, under
-``build/torch_kernels/`` beside the package (named by the source's hash, so
-an edited source rebuilds), loaded with ``ctypes``.  Pointers and the stream
-go over as ``c_void_p``.
+- ``csr`` (csrc/consult.cu): each query row ORs the [K, T] incidence rows
+  of its own keys, so a call reads nnz*T index bytes.  Launches count as
+  ``deps_join`` / ``max_conflict``.
+- ``dense`` (csrc/dense_join.cu): the overlap as an int8 tensor-core
+  product of the binarized query tile against the whole index, which a
+  call reads once per 64 query rows (K*T bytes).  Launches count as
+  ``deps_join_dense`` / ``max_conflict_dense``.
+
+Each source's header says what bounds it on the H100.
+
+The rule.  ``form="auto"`` (the default) takes ``join_form(b, t, k,
+n_cols)``, a pure function of host-known sizes (``n_cols = cols.numel()``,
+exact on the one-shot path, at most twice nnz on the service's pow2
+buckets): dense when the rows name at least ``DENSE_COLS_PER_KEY`` columns
+per index key and 64-row tile, K lies in [``DENSE_MIN_K``, ``DENSE_MAX_K``]
+and T is a multiple of 16; else CSR.  Nothing is read back from the card to decide.
+The constants come from a sweep of both forms on the card (PERF.md §6).
+``form="csr"`` or ``"dense"`` forces a form (tests, ``chip_smoke.py``);
+any other value raises.
+
+Build: every ``*.cu`` under ``csrc/`` is compiled by its own ``nvcc
+-gencode arch=compute_90a,code=sm_90a -O3 -c``, all started together, and
+linked into one shared library with a plain C interface, at first use,
+under ``build/torch_kernels/`` beside the package (named by the hash of
+every source and header and the flags, so an edited source rebuilds),
+loaded with ``ctypes``.  Pointers and the stream go over as ``c_void_p``.
 
 Dispatch: each wrapper takes the PLAIN torch version (same module, same
-arguments) only for tensors on the CPU.  For CUDA tensors it launches the
-kernel on ``torch.cuda.current_stream()`` or raises — on a failed build, a
-refused launch, or inputs the kernel does not take.  ``LAUNCHES`` counts
-kernel launches, one per wrapper call that reached the card.
+arguments) only for tensors on the CPU, whatever the form.  For CUDA
+tensors it launches the chosen form's kernel on
+``torch.cuda.current_stream()`` or raises — on a failed build, a refused
+launch (the C entry returns ``cudaGetLastError()``), or inputs the kernel
+does not take; it never falls back to the other form or the plain version.
+``LAUNCHES`` counts kernel launches, one per wrapper call that reached the
+card, under the form's name.
 
 Layout: the index incidence is pre-transposed ``[K, T]`` uint8 (0/1), the
 query a CSR pair ``offsets [B+1]`` / ``cols [N]`` int32 (duplicates legal,
@@ -42,14 +66,27 @@ import torch
 from .graph_state import INVALIDATED, TS_LANES, ts_less, wrap_index
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
-SOURCE = PACKAGE_DIR / "csrc" / "consult.cu"
+CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# kernel launches that reached the card, per kernel (tests and chip_smoke.py
-# zero these before a run and read them after)
-LAUNCHES: Dict[str, int] = {"deps_join": 0, "max_conflict": 0}
+# kernel launches that reached the card, per kernel and form (tests and
+# chip_smoke.py zero these before a run and read them after)
+LAUNCHES: Dict[str, int] = {"deps_join": 0, "max_conflict": 0,
+                            "deps_join_dense": 0, "max_conflict_dense": 0}
+
+FORMS = ("auto", "csr", "dense")
+# the dense form's query tile holds 64 rows of K bits in shared memory
+DENSE_MAX_K = 16384
+# join_form's thresholds, set from the sweep of both forms on the card
+# (PERF.md §6 has it): dense from 1.5 query columns per index key and
+# 64-row tile, and from one 64-key stage of index keys: rows over fewer
+# keys are short, both forms take a few microseconds and the CSR form's
+# one launch won most readings at K = 16, the dense form every one at 64
+DENSE_MIN_K = 64
+DENSE_COLS_PER_KEY = 1.5
+DENSE_ROWS = 64
 
 _LIB: Optional[ctypes.CDLL] = None
 BUILD_INFO: Dict[str, object] = {}
@@ -72,28 +109,44 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile csrc/consult.cu (once per source hash) and return the .so path.
-    ``BUILD_INFO`` records the compile's seconds and ptxas report."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libconsult_{digest}.so"
+    """Compile every csrc/*.cu (once per hash of the sources, headers and
+    flags), all nvcc processes started together, link them into one shared
+    library and return its path.  ``BUILD_INFO`` records the build's
+    seconds and the ptxas reports."""
+    srcs = sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in srcs:
+        h.update(p.name.encode() + b"\0" + p.read_bytes())
+    out = BUILD_DIR / f"libconsult_{h.hexdigest()[:16]}.so"
     if out.exists():
         BUILD_INFO.setdefault("path", str(out))
         BUILD_INFO.setdefault("seconds", 0.0)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)   # atomic: concurrent builders never see a torn file
-    BUILD_INFO.update(path=str(out), seconds=seconds, ptxas=proc.stderr,
-                      command=" ".join(cmd))
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs, cmds, procs = [], [], []
+        for src in (p for p in srcs if p.suffix == ".cu"):
+            objs.append(str(Path(tmpdir) / f"{src.stem}.o"))
+            cmds.append([nvcc, *NVCC_FLAGS, "-c", "-o", objs[-1], str(src)])
+            procs.append(subprocess.Popen(cmds[-1], stdout=subprocess.PIPE,
+                                          stderr=subprocess.PIPE, text=True))
+        ptxas = [proc.communicate()[1] for proc in procs]   # all finish
+        for cmd, proc, err in zip(cmds, procs, ptxas):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                   f"{' '.join(cmd)}\n{err}")
+        tmp = str(Path(tmpdir) / "lib.so")
+        cmds.append([nvcc, "-shared", "-o", tmp, *objs])
+        proc = subprocess.run(cmds[-1], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, out)   # atomic: concurrent builders never see a torn file
+    BUILD_INFO.update(path=str(out), seconds=time.perf_counter() - t0,
+                      ptxas="".join(ptxas),
+                      command="\n".join(" ".join(c) for c in cmds))
     return out
 
 
@@ -109,6 +162,16 @@ def lib() -> ctypes.CDLL:
         so.max_conflict_launch.restype = i32
         so.max_conflict_scratch_ints.argtypes = [i32, i32]
         so.max_conflict_scratch_ints.restype = ctypes.c_longlong
+        so.deps_join_dense_launch.argtypes = [vp] * 9 + \
+            [ctypes.c_ulonglong] + [i32] * 7 + [vp] * 3
+        so.deps_join_dense_launch.restype = i32
+        so.max_conflict_dense_launch.argtypes = [vp] * 6 + [i32] * 4 + \
+            [vp] * 3
+        so.max_conflict_dense_launch.restype = i32
+        for fn in (so.deps_join_dense_scratch_ints,
+                   so.max_conflict_dense_scratch_ints):
+            fn.argtypes = [i32, i32, i32]
+            fn.restype = ctypes.c_longlong
         _LIB = so
     return _LIB
 
@@ -268,9 +331,56 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def join_form(b: int, t: int, k: int, n_cols: int) -> str:
+    """"dense" or "csr" for a call of B rows over a [K, T] index whose query
+    holds ``n_cols`` columns (``cols.numel()``): dense when the rows name at
+    least DENSE_COLS_PER_KEY columns per key and 64-row tile (the CSR form
+    re-reads n_cols*T index bytes, the dense form K*T per tile), K is at
+    least DENSE_MIN_K (below it rows are short and the CSR form's single
+    launch is cheaper) and at most DENSE_MAX_K, and T is a multiple of 16
+    (the dense kernel's 16-byte stages).  Host-known sizes only: nothing
+    is read back from the card."""
+    tiles = -(-b // DENSE_ROWS)
+    if (DENSE_MIN_K <= k <= DENSE_MAX_K and t % 16 == 0
+            and n_cols >= DENSE_COLS_PER_KEY * k * tiles):
+        return "dense"
+    return "csr"
+
+
+def _check_form(form: str) -> None:
+    if form not in FORMS:
+        raise ValueError(f"form must be one of {FORMS}, got {form!r}")
+
+
+def _choose(form: str, inc_T: torch.Tensor, b: int, n_cols: int) -> str:
+    k, t = inc_T.shape
+    chosen = join_form(b, t, k, n_cols) if form == "auto" else form
+    if chosen == "dense" and (k > DENSE_MAX_K or t % 16
+                              or inc_T.data_ptr() % 16):
+        raise ValueError(
+            f"the dense form takes K <= {DENSE_MAX_K}, T % 16 == 0 and a "
+            f"16-byte aligned index, got K={k}, T={t}, "
+            f"address % 16 = {inc_T.data_ptr() % 16}")
+    return chosen
+
+
+def _scratch(n: int, name: str, dev: torch.device) -> Optional[torch.Tensor]:
+    """The int32 scratch a launch asked for (``n`` < 0: minus the CUDA
+    error of the entry point's device query)."""
+    if n < 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {-n}")
+    return torch.empty((n,), dtype=torch.int32, device=dev) if n else None
+
+
+def _ptr_or_null(x: Optional[torch.Tensor]) -> Optional[ctypes.c_void_p]:
+    return None if x is None else _ptr(x)
+
+
 def deps_join(inc_T, txn_id, kind, status, active, offsets, cols, before,
-              qkind, packed: bool = False) -> torch.Tensor:
-    """K1: the dependency mask [B, T] bool, or [B, T/8] uint8 bit-packed."""
+              qkind, packed: bool = False, form: str = "auto") -> torch.Tensor:
+    """K1: the dependency mask [B, T] bool, or [B, T/8] uint8 bit-packed,
+    through the CSR or the dense kernel (``form``, see ``join_form``)."""
+    _check_form(form)
     if inc_T.device.type == "cpu":
         return deps_join_plain(inc_T, txn_id, kind, status, active, offsets,
                                cols, before, qkind, packed)
@@ -281,44 +391,65 @@ def deps_join(inc_T, txn_id, kind, status, active, offsets, cols, before,
     _check("qkind", qkind, torch.int8, (b,), dev)
     if packed and t % 8:
         raise ValueError(f"bit-packed output needs T % 8 == 0, got T={t}")
+    dense = _choose(form, inc_T, b, cols.numel()) == "dense"
     out = torch.empty((b, t // 8) if packed else (b, t),
                       dtype=torch.uint8 if packed else torch.bool, device=dev)
     if b == 0 or t == 0:
         return out
-    rc = lib().deps_join_launch(
-        _ptr(inc_T), _ptr(txn_id), _ptr(kind), _ptr(status), _ptr(active),
-        _ptr(offsets), _ptr(cols), _ptr(before), _ptr(qkind),
-        ctypes.c_ulonglong(_WIT_BITS), _WIT_NP.shape[0], INVALIDATED, b, t, k,
-        int(bool(packed)), _ptr(out), _stream(dev))
+    so = lib()
+    name = "deps_join_dense" if dense else "deps_join"
+    args = (_ptr(inc_T), _ptr(txn_id), _ptr(kind), _ptr(status), _ptr(active),
+            _ptr(offsets), _ptr(cols), _ptr(before), _ptr(qkind),
+            ctypes.c_ulonglong(_WIT_BITS), _WIT_NP.shape[0], INVALIDATED, b, t,
+            k)
+    if dense:
+        # scratch: the query as bits, built by the launch's first kernel
+        scratch = _scratch(so.deps_join_dense_scratch_ints(b, t, k), name, dev)
+        rc = so.deps_join_dense_launch(
+            *args, cols.numel(), int(bool(packed)), _ptr_or_null(scratch),
+            _ptr(out), _stream(dev))
+    else:
+        rc = so.deps_join_launch(*args, int(bool(packed)), _ptr(out),
+                                 _stream(dev))
     if rc != 0:
-        raise RuntimeError(f"deps_join launch failed: CUDA error {rc}")
-    LAUNCHES["deps_join"] += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
     return out
 
 
-def max_conflict(inc_T, ts, txn_id, active, offsets, cols) -> torch.Tensor:
+def max_conflict(inc_T, ts, txn_id, active, offsets, cols,
+                 form: str = "auto") -> torch.Tensor:
     """K2: per query row, the lex max [B, 5] int32 of max(ts, txn_id) over
-    the active slots sharing a key (zero lanes when none)."""
+    the active slots sharing a key (zero lanes when none), through the CSR
+    or the dense kernel (``form``, see ``join_form``)."""
+    _check_form(form)
     if inc_T.device.type == "cpu":
         return max_conflict_plain(inc_T, ts, txn_id, active, offsets, cols)
     b, t, k = _check_common(inc_T, txn_id, active, offsets, cols)
     dev = inc_T.device
     _check("ts", ts, torch.int32, (t, TS_LANES), dev)
+    dense = _choose(form, inc_T, b, cols.numel()) == "dense"
     out = torch.empty((b, TS_LANES), dtype=torch.int32, device=dev)
     if b == 0 or t == 0:
         return out.zero_()
     so = lib()
-    # the kernel writes every row of out; scratch (the cross-tile fold's
-    # counters and partials) only when T spans several tiles
-    n = so.max_conflict_scratch_ints(b, t)
-    if n < 0:
-        raise RuntimeError(f"max_conflict launch failed: CUDA error {-n}")
-    scratch = torch.empty((n,), dtype=torch.int32, device=dev) if n else None
-    rc = so.max_conflict_launch(
-        _ptr(inc_T), _ptr(ts), _ptr(txn_id), _ptr(active), _ptr(offsets),
-        _ptr(cols), b, t, k, None if scratch is None else _ptr(scratch),
-        _ptr(out), _stream(dev))
+    name = "max_conflict_dense" if dense else "max_conflict"
+    args = (_ptr(inc_T), _ptr(ts), _ptr(txn_id), _ptr(active), _ptr(offsets),
+            _ptr(cols), b, t, k)
+    # the kernels write every row of out; scratch: the partials of a row
+    # that several blocks share (the CSR form's with their counters) and
+    # the dense form's query bits
+    if dense:
+        scratch = _scratch(so.max_conflict_dense_scratch_ints(b, t, k), name,
+                           dev)
+        rc = so.max_conflict_dense_launch(*args, cols.numel(),
+                                          _ptr_or_null(scratch), _ptr(out),
+                                          _stream(dev))
+    else:
+        scratch = _scratch(so.max_conflict_scratch_ints(b, t), name, dev)
+        rc = so.max_conflict_launch(*args, _ptr_or_null(scratch), _ptr(out),
+                                    _stream(dev))
     if rc != 0:
-        raise RuntimeError(f"max_conflict launch failed: CUDA error {rc}")
-    LAUNCHES["max_conflict"] += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
     return out

@@ -23,10 +23,11 @@ The join functions convert to the kernels' layout — the incidence
 transposed to ``[K, T]`` uint8, the query to CSR — and call kernel K1
 (``_kernels.deps_join``) and/or K2 (``_kernels.max_conflict``).  On CPU
 tensors those wrappers run their plain torch versions; on CUDA tensors the
-hand-written kernels (csrc/consult.cu).  The graph functions are ``jax.jit``
-code in the reference, not Pallas, so they are torch ops on the tensors'
-device; their while loops are Python loops with the reference's bounds,
-reading one flag back from the device per round.
+hand-written kernels, CSR (csrc/consult.cu) or dense (csrc/dense_join.cu)
+by ``_kernels.join_form`` unless a caller's ``form`` says.  The graph
+functions are ``jax.jit`` code in the reference, not Pallas, so they are
+torch ops on the tensors' device; their while loops are Python loops with
+the reference's bounds, reading one flag back from the device per round.
 """
 from __future__ import annotations
 
@@ -109,12 +110,12 @@ def _bool(x: torch.Tensor) -> torch.Tensor:
 
 
 def _join(inc_T, index_txn_id, index_kind, index_status, index_active,
-          batch_key_inc, batch_before, batch_kind, packed=False):
+          batch_key_inc, batch_before, batch_kind, packed=False, form="auto"):
     offsets, cols = query_csr(batch_key_inc)
     return _kernels.deps_join(
         inc_T, _i32(index_txn_id), _i8(index_kind), _i8(index_status),
         _bool(index_active), offsets, cols, _i32(batch_before),
-        _i8(batch_kind), packed=packed)
+        _i8(batch_kind), packed=packed, form=form)
 
 
 def overlap_join(index_key_inc: torch.Tensor,   # [T, K] int8 — in-flight txns
@@ -125,16 +126,18 @@ def overlap_join(index_key_inc: torch.Tensor,   # [T, K] int8 — in-flight txns
                  batch_key_inc: torch.Tensor,   # [B, K] int8 — new txns' keys
                  batch_before: torch.Tensor,    # [B, 5] int32 — started-before bound
                  batch_kind: torch.Tensor,      # [B] int8
+                 form: str = "auto",
                  ) -> torch.Tensor:
     """For each of B new transactions, the set of in-flight txns it must
     depend on: shares >=1 key, witness-matrix hit, active, not invalidated,
     and STARTED BEFORE the query bound (mapReduceActive's
-    TestStartedAt.STARTED_BEFORE, SafeCommandStore.java:65-72).
+    TestStartedAt.STARTED_BEFORE, SafeCommandStore.java:65-72).  ``form``
+    picks K1's kernel (``_kernels.join_form``).
 
     Returns deps: [B, T] bool."""
     return _join(incidence_T(index_key_inc), index_txn_id, index_kind,
                  index_status, index_active, batch_key_inc, batch_before,
-                 batch_kind)
+                 batch_kind, form=form)
 
 
 def max_conflict_keys(index_key_inc: torch.Tensor,  # [T, K] int8
@@ -142,6 +145,7 @@ def max_conflict_keys(index_key_inc: torch.Tensor,  # [T, K] int8
                       index_txn_id: torch.Tensor,   # [T, 5] int32
                       index_active: torch.Tensor,   # [T] bool
                       batch_key_inc: torch.Tensor,  # [B, K] int8
+                      form: str = "auto",
                       ) -> torch.Tensor:
     """Per query, the lexicographic max of max(executeAt, txnId) over every
     active indexed txn sharing a key.  Returns [B, 5] int32 (zero lanes =
@@ -149,20 +153,20 @@ def max_conflict_keys(index_key_inc: torch.Tensor,  # [T, K] int8
     offsets, cols = query_csr(batch_key_inc)
     return _kernels.max_conflict(
         incidence_T(index_key_inc), _i32(index_ts), _i32(index_txn_id),
-        _bool(index_active), offsets, cols)
+        _bool(index_active), offsets, cols, form=form)
 
 
 def _consult(index_live_inc, index_key_inc, index_ts, index_txn_id,
              index_kind, index_status, index_active, batch_key_inc,
-             batch_before, batch_kind, packed):
+             batch_before, batch_kind, packed, form):
     offsets, cols = query_csr(batch_key_inc)
     deps = _kernels.deps_join(
         incidence_T(index_live_inc), _i32(index_txn_id), _i8(index_kind),
         _i8(index_status), _bool(index_active), offsets, cols,
-        _i32(batch_before), _i8(batch_kind), packed=packed)
+        _i32(batch_before), _i8(batch_kind), packed=packed, form=form)
     max_lanes = _kernels.max_conflict(
         incidence_T(index_key_inc), _i32(index_ts), _i32(index_txn_id),
-        _bool(index_active), offsets, cols)
+        _bool(index_active), offsets, cols, form=form)
     return deps, max_lanes
 
 
@@ -176,16 +180,18 @@ def consult(index_live_inc: torch.Tensor,  # [T, K] int8 — covered bits zeroed
             batch_key_inc: torch.Tensor,   # [B, K] int8
             batch_before: torch.Tensor,    # [B, 5] int32
             batch_kind: torch.Tensor,      # [B] int8
+            form: str = "auto",
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The fused replica consult: the dependency calculation over the LIVE
     incidence (covered bits implement cfk transitive elision,
     CommandsForKey.java:144-157) and the timestamp-proposal max over the
-    FULL incidence (elision never applies to MaxConflicts).
+    FULL incidence (elision never applies to MaxConflicts).  ``form`` picks
+    K1's and K2's kernels (``_kernels.join_form``).
 
     Returns (deps [B, T] bool, max_lanes [B, 5] int32)."""
     return _consult(index_live_inc, index_key_inc, index_ts, index_txn_id,
                     index_kind, index_status, index_active, batch_key_inc,
-                    batch_before, batch_kind, packed=False)
+                    batch_before, batch_kind, packed=False, form=form)
 
 
 def consult_packed(index_live_inc: torch.Tensor, index_key_inc: torch.Tensor,
@@ -193,6 +199,7 @@ def consult_packed(index_live_inc: torch.Tensor, index_key_inc: torch.Tensor,
                    index_kind: torch.Tensor, index_status: torch.Tensor,
                    index_active: torch.Tensor, batch_key_inc: torch.Tensor,
                    batch_before: torch.Tensor, batch_kind: torch.Tensor,
+                   form: str = "auto",
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``consult`` with the deps mask BIT-PACKED ([B, T/8] uint8,
     little-endian bit order, T a multiple of 8): the [B, T] bool result is
@@ -200,7 +207,7 @@ def consult_packed(index_live_inc: torch.Tensor, index_key_inc: torch.Tensor,
     crosses back to the host.  Hosts unpack with np.unpackbits."""
     return _consult(index_live_inc, index_key_inc, index_ts, index_txn_id,
                     index_kind, index_status, index_active, batch_key_inc,
-                    batch_before, batch_kind, packed=True)
+                    batch_before, batch_kind, packed=True, form=form)
 
 
 def max_conflict_ts(index_exec_at: torch.Tensor,  # [T, 5] int32

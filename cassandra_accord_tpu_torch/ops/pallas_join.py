@@ -6,7 +6,9 @@ matmul kernel (``_join_kernel``, launched at :61), with the predicate built
 outside as a [B, T] f32 mask.  Here the entry point goes to kernel K1
 (``_kernels.deps_join``, csrc/consult.cu), which evaluates the predicate
 inside the kernel from the lane, kind, status and active vectors, so no
-[B, T] mask is built; its plain torch version
+[B, T] mask is built (its dense form, csrc/dense_join.cu, is the Pallas
+kernel's own shape: the product on the tensor cores, the mask fused in its
+epilogue); its plain torch version
 (``_kernels.deps_join_plain``) runs for CPU tensors.  A drop-in for
 ``deps_kernels.overlap_join``.
 """
@@ -25,9 +27,11 @@ def overlap_join_fused(index_key_inc: torch.Tensor,   # [T, K] int8
                        batch_key_inc: torch.Tensor,   # [B, K] int8
                        batch_txn_id: torch.Tensor,    # [B, 5] int32
                        batch_kind: torch.Tensor,      # [B] int8
+                       form: str = "auto",
                        ) -> torch.Tensor:
-    """Drop-in for deps_kernels.overlap_join through kernel K1.  Returns
+    """Drop-in for deps_kernels.overlap_join through kernel K1 (``form``
+    picks its CSR or dense kernel, ``_kernels.join_form``).  Returns
     [B, T] bool."""
     return _join(incidence_T(index_key_inc), index_txn_id, index_kind,
                  index_status, index_active, batch_key_inc, batch_txn_id,
-                 batch_kind)
+                 batch_kind, form=form)

@@ -9,12 +9,22 @@ Run from the repository root:
 Phases, one JSON line each; any failure exits non-zero:
 
 1. env      torch/CUDA versions, nvcc, the card's name and power limit;
-2. build    nvcc of csrc/consult.cu for sm_90a, with its time;
-3. kernels  K1 (deps_join) and K2 (max_conflict) at full size against
-            their plain torch versions, exactly (the eager answer and the
-            graph replays' answers), and on rows with columns -1, -K, K and
-            -K-1 (wrapped once or dropped, as the reference's densify does);
-            device time per launch
+2. build    nvcc of every csrc/*.cu for sm_90a (all started together),
+            linked into one library, with its time;
+3. kernels  K1 (deps_join) and K2 (max_conflict) in both forms, CSR
+            (csrc/consult.cu) and dense (csrc/dense_join.cu: K1d, K2d), at
+            full size against their plain torch versions, exactly (the
+            eager answer and the graph replays' answers), and on rows with
+            columns -1, -K, K and -K-1 (wrapped once or dropped, as the
+            reference's densify does); each case once more through the
+            service's consult (ragged_consult_t), whose wrappers pick the
+            form (join_form), launches counted: config 4 and the wide row
+            on K1d/K2d, the rest on K1/K2 (the dense form refuses the
+            cases with T % 16 != 0, checked); the sweep of both forms in
+            turns over row widths at config 4's and the wide row's index,
+            config 4's rows over fewer slots and rows naming every key of
+            16-, 64- and 256-key indexes (the crossovers join_form is set
+            from); device time per launch
             from a CUDA graph of back-to-back launches between one event
             pair (cold and warm L2), the wrapper's host cost apart, beside
             the plain version, one torch.matmul of the same join and the
@@ -101,7 +111,9 @@ Phases, one JSON line each; any failure exits non-zero:
             (the checks sit inside the stages' timed regions, so the rates
             this phase prints are not the bench's).
 
-Then the card's nvidia-smi line, one ``{"kernels": [...]}`` line and, last,
+Then the card's nvidia-smi line, one ``{"kernels": [...]}`` line (K1, K2,
+K1d, K2d, each with its launches per path and its times at every measured
+shape in both forms) and, last,
 ``{"ok": true, "device": {...}}``.  Without CUDA, or run from a directory
 that does not hold the port, it exits non-zero and prints no result.
 """
@@ -133,14 +145,47 @@ INT8_TENSOR_OPS_PER_S = 1979e12
 BF16_TENSOR_FLOPS_PER_S = 989e12
 
 TPU_KERNEL = "cassandra_accord_tpu/ops/pallas_join.py:36"   # _join_kernel
-SOURCE = "cassandra_accord_tpu_torch/csrc/consult.cu"
+MAX_HALF = "cassandra_accord_tpu/device_service/kernel.py:55"
 REPLACES = {
     # K1 is the port of the one Pallas kernel (pallas_call at :61)
     "deps_join": TPU_KERNEL,
     # K2 is the max half of the same consult; the reference computes it in
     # XLA beside the join (device_service/kernel.py:55-59)
-    "max_conflict": "cassandra_accord_tpu/device_service/kernel.py:55",
+    "max_conflict": MAX_HALF,
+    # K1d and K2d: the same functions as an int8 tensor-core product, the
+    # Pallas kernel's own shape (a dense query against the whole index)
+    "deps_join_dense": TPU_KERNEL,
+    "max_conflict_dense": MAX_HALF,
 }
+SOURCES = {"deps_join": "cassandra_accord_tpu_torch/csrc/consult.cu",
+           "max_conflict": "cassandra_accord_tpu_torch/csrc/consult.cu",
+           "deps_join_dense": "cassandra_accord_tpu_torch/csrc/dense_join.cu",
+           "max_conflict_dense":
+               "cassandra_accord_tpu_torch/csrc/dense_join.cu"}
+CSR_KERNELS = ("deps_join", "max_conflict")
+# BASELINE.md config 4 (range transactions of 1,000 keys): the kernels
+# phase's case whose consult is the dense kernels' path
+CONFIG4 = "config4_T65536_K2048_B64_1024keys"
+FORMS = ("csr", "dense")
+
+
+def kernel_name(base, form) -> str:
+    """The launch counter (and kernels-line entry) of ``base`` in ``form``."""
+    return f"{base}_dense" if form == "dense" else base
+
+
+def k1_launches(launches) -> int:
+    """K1 launches in either form: what one deps_join wrapper call adds."""
+    return launches["deps_join"] + launches["deps_join_dense"]
+
+
+def need_csr_only(launches, what) -> None:
+    """Both CSR kernels launched and no dense one: the paths whose shapes
+    join_form keeps on the CSR form."""
+    need(all(launches[n] > 0 for n in CSR_KERNELS)
+         and launches["deps_join_dense"] == 0
+         and launches["max_conflict_dense"] == 0,
+         f"{what} launched {launches}")
 
 
 def emit(obj) -> None:
@@ -378,6 +423,7 @@ class KernelRecorder:
 
     def _check(self, name, args, kwargs, got):
         t0 = time.perf_counter()
+        kwargs = {k: v for k, v in kwargs.items() if k != "form"}
         want = getattr(self.k, f"{name}_plain")(*args, **kwargs)
         need(self.torch.equal(got, want),
              f"{name} differs from its plain version at "
@@ -465,10 +511,16 @@ def phase_build(ctx):
 def _kernel_case(ctx, label, t, k, b, keys_per_txn, iters, packed=(False, True),
                  wide=0):
     """K1 (unpacked, and bit-packed where ``packed`` says) and K2 on one
-    synthetic index and query batch; with ``wide`` the first query row takes
-    that many random columns, duplicates included."""
+    synthetic index and query batch, each in both forms (CSR, dense); then
+    the same batch through the consult the device tier's service runs
+    (``device_service.kernel.ragged_consult_t``, the CSR batch as given),
+    whose wrappers pick the form (join_form), with the launch counts zeroed
+    just before and read just after; with ``wide`` the first query row
+    takes that many random columns, duplicates included."""
     import numpy as np
     torch = ctx["torch"]
+    from cassandra_accord_tpu_torch.device_service.kernel import \
+        ragged_consult_t
     from cassandra_accord_tpu_torch.ops import _kernels as K
     dev = torch.device(ctx["dev"])
     rng = np.random.default_rng(7)
@@ -487,27 +539,76 @@ def _kernel_case(ctx, label, t, k, b, keys_per_txn, iters, packed=(False, True),
     g = dict(txn_id=up(lanes), ts=up(ts), kind=up(kind), status=up(status),
              active=up(active), offsets=up(offsets), cols=up(cols),
              before=up(before), qkind=up(qkind))
+    jargs = (live_T, g["txn_id"], g["kind"], g["status"], g["active"],
+             g["offsets"], g["cols"], g["before"], g["qkind"])
+    margs = (key_T, g["ts"], g["txn_id"], g["active"], g["offsets"],
+             g["cols"])
     out = []
-    for pk in packed:
-        out.append(measure(ctx, "deps_join", f"{label}{'_packed' if pk else ''}",
-                           (live_T, g["txn_id"], g["kind"], g["status"],
-                            g["active"], g["offsets"], g["cols"], g["before"],
-                            g["qkind"]), {"packed": pk}, iters))
-    out.append(measure(ctx, "max_conflict", label,
-                       (key_T, g["ts"], g["txn_id"], g["active"],
-                        g["offsets"], g["cols"]), {}, iters))
+    for form in FORMS:
+        if form == "dense" and t % 16:
+            _dense_refused(ctx, label, jargs, margs)
+            continue
+        for pk in packed:
+            out.append(measure(ctx, "deps_join",
+                               f"{label}{'_packed' if pk else ''}", jargs,
+                               {"packed": pk}, iters, form=form))
+        out.append(measure(ctx, "max_conflict", label, margs, {}, iters,
+                           form=form))
+    K.reset_launches()                        # just before the call
+    deps, cmax = ragged_consult_t(live_T, key_T, g["ts"], g["txn_id"],
+                                  g["kind"], g["status"], g["active"],
+                                  g["cols"], g["offsets"], g["before"],
+                                  g["qkind"])
+    sync(ctx)
+    launches = dict(K.LAUNCHES)               # just after it
+    need(torch.equal(deps, K.deps_join_plain(*jargs))
+         and torch.equal(cmax, K.max_conflict_plain(*margs)),
+         f"[{label}] the service's consult differs from the plain versions")
+    form = K.join_form(b, t, k, g["cols"].numel())
+    need(launches == {n: int(n in (kernel_name("deps_join", form),
+                                   kernel_name("max_conflict", form)))
+                      for n in K.LAUNCHES},
+         f"[{label}] auto ({form}) launched {launches}")
+    ctx.setdefault("auto_launches", {})[label] = launches
     return out
 
 
-def measure(ctx, name, label, args, kwargs, iters, path="synthetic"):
-    """One kernel at one shape: exact check against the plain version (the
-    eager call's answer, and the last graph replay's of each timing, also
-    after its output was overwritten and the graph replayed once more),
-    then kernel (cold and warm L2), plain and library times, the wrapper's
-    host cost and the bound.  ``path`` says where the shape came from."""
+def _dense_refused(ctx, label, jargs, margs):
+    """The dense form takes T % 16 == 0 only: forced at another T, K1d and
+    K2d raise and launch nothing."""
+    from cassandra_accord_tpu_torch.ops import _kernels as K
+    before = dict(K.LAUNCHES)
+    for name, args in (("deps_join", jargs), ("max_conflict", margs)):
+        try:
+            ctx["real"][name](*args, form="dense")
+        except ValueError:
+            continue
+        need(False, f"[{label}] {name} forced dense did not raise")
+    need(K.LAUNCHES == before, f"[{label}] a refused dense call launched")
+
+
+def measure(ctx, name, label, args, kwargs, iters, path="synthetic",
+            form="auto"):
+    """One kernel (``name``: deps_join or max_conflict) in one form at one
+    shape: exact check against the plain version (the eager call's answer,
+    and the last graph replay's of each timing, also after its output was
+    overwritten and the graph replayed once more), then kernel (cold and
+    warm L2), plain and library times, the wrapper's host cost and the
+    bound.  ``path`` says where the shape came from; ``form`` "auto" is the
+    form join_form picks for it, and the row is named by the form."""
     torch = ctx["torch"]
     from cassandra_accord_tpu_torch.ops import _kernels as K
-    kern = ctx["real"][name]
+    kwargs = {k: v for k, v in kwargs.items() if k != "form"}
+    inc_T = args[0]
+    offsets = args[5] if name == "deps_join" else args[4]
+    cols = args[6] if name == "deps_join" else args[5]
+    if form == "auto":
+        form = K.join_form(offsets.numel() - 1, inc_T.shape[1],
+                           inc_T.shape[0], cols.numel())
+    real = ctx["real"][name]
+
+    def kern(*a, **kw):
+        return real(*a, form=form, **kw)
     plain = getattr(K, f"{name}_plain")
     got = kern(*args, **kwargs)
     want = plain(*args, **kwargs)
@@ -536,14 +637,11 @@ def measure(ctx, name, label, args, kwargs, iters, path="synthetic"):
         floor_ms = ctx["floors"][iters] = device_ms(
             torch, lambda: one.add_(1), iters, flush)
     err = max(errs)
-    need(err == 0, f"{name} [{label}] differs from its plain version: "
+    need(err == 0, f"{name} ({form}) [{label}] differs from its plain version: "
          f"max_abs_err {errs} (eager, then cold and warm graph replays)")
     wrapper_us = host_us(torch, call, iters)
     plain_ms = eager_ms(torch, lambda: plain(*args, **kwargs),
                         max(3, iters // 4), flush)
-    inc_T = args[0]
-    offsets = args[5] if name == "deps_join" else args[4]
-    cols = args[6] if name == "deps_join" else args[5]
     qf = K.dense_query(offsets, cols, inc_T.shape[0]).float()
     incf = inc_T.float()
     library_ms = device_ms(torch, lambda: torch.matmul(qf, incf),
@@ -551,7 +649,7 @@ def measure(ctx, name, label, args, kwargs, iters, path="synthetic"):
     del qf, incf
     bound_ms, bound_by, nbytes, ops = join_bound(
         torch, name, inc_T, offsets, cols, packed=kwargs.get("packed", False))
-    row = {"name": name, "shape": label, "path": path,
+    row = {"name": kernel_name(name, form), "shape": label, "path": path,
            "B": offsets.numel() - 1, "T": inc_T.shape[1], "K": inc_T.shape[0],
            "nnz": int(offsets[-1]), "packed": bool(kwargs.get("packed", False)),
            "max_abs_err": err, "ms": ms, "warm_ms": warm_ms,
@@ -566,14 +664,15 @@ def measure(ctx, name, label, args, kwargs, iters, path="synthetic"):
 def phase_kernels(ctx):
     rows = []
     rows += _kernel_case(ctx, "T65536_K512_B256_2keys", 65536, 512, 256, 2, 20)
-    rows += _kernel_case(ctx, "config4_T65536_K2048_B64_1024keys", 65536,
-                         2048, 64, 1024, 10)
-    # the odd-T path (byte loads, no packing) at a small shape
+    rows += _kernel_case(ctx, CONFIG4, 65536, 2048, 64, 1024, 10)
+    # odd T (the CSR form's byte loads, no packing; the dense form refuses
+    # T % 16 != 0) at a small shape
     rows += _kernel_case(ctx, "T1003_K64_B13_2keys", 1003, 64, 13, 2, 20,
                          packed=(False,))
     # the burn's window shape (its largest calls are timed after the burn)
     rows += _kernel_case(ctx, "burnlike_T256_K16_B8_2keys", 256, 16, 8, 2, 20)
-    # two tiles, the second with one slot (byte loads, cross-tile fold)
+    # two tiles, the second with one slot (the CSR form's byte loads and
+    # cross-tile fold; the dense form refuses it)
     rows += _kernel_case(ctx, "T2049_K64_B13_2keys", 2049, 64, 13, 2, 20,
                          packed=(False,))
     # a row of 5,000 columns (duplicates), wider than a block's CSR stage
@@ -584,7 +683,120 @@ def phase_kernels(ctx):
             "bound_ms", "bound_by")
     return {"negative_columns": _kernel_columns(ctx),
             "cases": [dict({k: r[k] for k in keys},
-                           bound_us=r["bound_ms"] * 1e3) for r in rows]}
+                           bound_us=r["bound_ms"] * 1e3) for r in rows],
+            "auto_launches": ctx["auto_launches"],
+            "sweep": _kernel_sweep(ctx)}
+
+
+# The crossover sweep of the two forms (PERF.md §6 sets join_form's
+# thresholds from it): config 4's index (T=65,536, K=2,048, 50% dense) with
+# 64 rows of 8 to 1,024 keys each, then its 1,024-key rows over the first
+# ``short_T`` slots; the wide row's (K=512, 2 keys per txn) with 8 rows of
+# 2 keys and one of 500 to 5,000 columns (duplicates); and indexes of 16
+# (the protocol paths'), 64 and 256 keys with 8 rows naming every key, at
+# the protocol paths' T and above
+SWEEP = dict(config4=dict(T=65536, K=2048, B=64,
+                          keys=(8, 32, 128, 256, 512, 1024),
+                          short_T=(256, 1024, 2048, 4096, 8192, 16384)),
+             wide=dict(T=65536, K=512, B=9, cols=(500, 1000, 5000)),
+             protocol=dict(T=4096, K=(16, 64, 256), B=8,
+                           short_T=(128, 256, 1024)),
+             iters=10)
+
+
+def _sweep_point(ctx, label, key_T, g, rows):
+    """K1 and K2 at one query batch in both forms: each form held against
+    the plain version once, exactly, then cold-L2 device ms in turns (CSR,
+    dense, dense, CSR)."""
+    import numpy as np
+    torch = ctx["torch"]
+    from cassandra_accord_tpu_torch.ops import _kernels as K
+    offsets, cols = (torch.from_numpy(a).to(ctx["dev"])
+                     for a in to_csr(np, rows))
+    k, t = key_T.shape
+    b = len(rows)
+    calls = {"deps_join": ((key_T, g["txn_id"], g["kind"], g["status"],
+                            g["active"], offsets, cols, g["before"][:b],
+                            g["qkind"][:b]), K.deps_join_plain),
+             "max_conflict": ((key_T, g["ts"], g["txn_id"], g["active"],
+                               offsets, cols), K.max_conflict_plain)}
+    out = {"shape": label, "B": b, "T": t, "K": k, "n_cols": cols.numel(),
+           "rule": K.join_form(b, t, k, cols.numel())}
+    for name, (args, plain) in calls.items():
+        real = ctx["real"][name]
+        want = plain(*args)
+        for form in FORMS:
+            got = real(*args, form=form)
+            sync(ctx)
+            need(torch.equal(got, want),
+                 f"sweep [{label}] {name} ({form}) differs from its plain "
+                 "version")
+        ms = {form: [] for form in FORMS}
+        for form in ("csr", "dense", "dense", "csr"):
+            ms[form].append(device_ms(
+                torch, lambda f=form: real(*args, form=f), SWEEP["iters"],
+                ctx["flush"]))
+        best = min(FORMS, key=lambda f: min(ms[f]))
+        out[name] = {"csr_ms": ms["csr"], "dense_ms": ms["dense"],
+                     "faster": best}
+    return out
+
+
+def _first_slots(key_T, g, t):
+    """The index and slot arrays cut to their first ``t`` slots."""
+    slots = ("txn_id", "ts", "kind", "status", "active")
+    return key_T[:, :t].contiguous(), {
+        n: v[:t].contiguous() if n in slots else v for n, v in g.items()}
+
+
+def _kernel_sweep(ctx):
+    import numpy as np
+    torch = ctx["torch"]
+    dev = ctx["dev"]
+    rng = np.random.default_rng(11)
+    out = []
+    cases = [("config4", SWEEP["config4"]["K"]), ("wide", SWEEP["wide"]["K"])]
+    cases += [("protocol", k) for k in SWEEP["protocol"]["K"]]
+    for case, k in cases:
+        p = SWEEP[case]
+        t, b = p["T"], p["B"]
+        if case == "config4":
+            key_T = torch.from_numpy(rng.integers(0, 2, (k, t), dtype=np.uint8))
+            _ki, _l, lanes, ts, kind, status, active = make_index(
+                np, rng, t, k, 2)
+        else:
+            key_inc, _l, lanes, ts, kind, status, active = make_index(
+                np, rng, t, k, 2)
+            key_T = torch.from_numpy(np.ascontiguousarray(
+                (key_inc != 0).T).astype(np.uint8))
+        _r, before, qkind = make_queries(np, rng, b, k, t, 2)
+        g = {n: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+             for n, a in dict(txn_id=lanes, ts=ts, kind=kind, status=status,
+                              active=active, before=before,
+                              qkind=qkind).items()}
+        key_T = key_T.to(dev)
+        if case == "config4":
+            for kpr in p["keys"]:
+                rows = [sorted(int(c) for c in rng.choice(k, kpr, replace=False))
+                        for _ in range(b)]
+                out.append(_sweep_point(ctx, f"config4_{kpr}keys", key_T, g,
+                                        rows))
+            for short in p["short_T"]:
+                out.append(_sweep_point(ctx, f"config4_{kpr}keys_T{short}",
+                                        *_first_slots(key_T, g, short), rows))
+        elif case == "protocol":
+            rows = [list(range(k))] * b
+            for short in p["short_T"] + (t,):
+                out.append(_sweep_point(ctx, f"full_rows_K{k}_T{short}",
+                                        *_first_slots(key_T, g, short), rows))
+        else:
+            narrow, _b, _q = make_queries(np, rng, b - 1, k, t, 2)
+            for w in p["cols"]:
+                rows = [sorted(int(c) for c in rng.integers(0, k, w))] + narrow
+                out.append(_sweep_point(ctx, f"wide_row_{w}cols", key_T, g,
+                                        rows))
+        del key_T
+    return out
 
 
 def _kernel_columns(ctx):
@@ -595,7 +807,7 @@ def _kernel_columns(ctx):
     import numpy as np
     torch = ctx["torch"]
     from cassandra_accord_tpu_torch.ops import _kernels as K
-    t, k = 2056, 64                          # two tiles; T % 8 == 0
+    t, k = 2064, 64                          # two CSR tiles; T % 16 == 0
     rng = np.random.default_rng(29)
     key_inc, live, lanes, ts, kind, status, active = make_index(
         np, rng, t, k, 2)
@@ -610,21 +822,27 @@ def _kernel_columns(ctx):
              up(qkind))
     margs = (up((key_inc != 0).T.astype(np.uint8)), up(ts), up(lanes),
              up(active), up(offsets), up(cols))
-    got = {"deps_join": ctx["real"]["deps_join"](*jargs),
-           "deps_join_packed": ctx["real"]["deps_join"](*jargs, packed=True),
-           "max_conflict": ctx["real"]["max_conflict"](*margs)}
-    want = {"deps_join": K.deps_join_plain(*jargs),
-            "deps_join_packed": K.deps_join_plain(*jargs, packed=True),
-            "max_conflict": K.max_conflict_plain(*margs)}
-    sync(ctx)
-    errs = {n: max_abs_err(torch, got[n], want[n]) for n in got}
-    need(all(e == 0 for e in errs.values()),
-         f"negative columns: kernels differ from their plain versions {errs}")
-    # the wrapped columns name real keys; K and -K-1 alone name none
-    need(bool(got["max_conflict"][2].any()) and bool(got["deps_join"][0].any()),
-         "negative columns: the wrapped rows found no conflict")
-    need(not bool(got["max_conflict"][4].any()),
-         "negative columns: a row of dropped columns found a conflict")
+    errs = {}
+    for form in FORMS:
+        got = {"deps_join": ctx["real"]["deps_join"](*jargs, form=form),
+               "deps_join_packed": ctx["real"]["deps_join"](
+                   *jargs, packed=True, form=form),
+               "max_conflict": ctx["real"]["max_conflict"](*margs, form=form)}
+        want = {"deps_join": K.deps_join_plain(*jargs),
+                "deps_join_packed": K.deps_join_plain(*jargs, packed=True),
+                "max_conflict": K.max_conflict_plain(*margs)}
+        sync(ctx)
+        errs[form] = {n: max_abs_err(torch, got[n], want[n]) for n in got}
+        need(all(e == 0 for e in errs[form].values()),
+             f"negative columns ({form}): kernels differ from their plain "
+             f"versions {errs[form]}")
+        # the wrapped columns name real keys; K and -K-1 alone name none
+        need(bool(got["max_conflict"][2].any())
+             and bool(got["deps_join"][0].any()),
+             f"negative columns ({form}): the wrapped rows found no conflict")
+        need(not bool(got["max_conflict"][4].any()),
+             f"negative columns ({form}): a row of dropped columns found a "
+             "conflict")
     return {"T": t, "K": k, "rows": rows, "max_abs_err": errs}
 
 
@@ -692,7 +910,7 @@ def phase_service(ctx):
     need(answered == windows * b, f"answered {answered}")
     need(launches["deps_join"] > 0 and launches["max_conflict"] > 0,
          f"service launched no kernel: {launches}")
-    need(chk.calls["deps_join"] == launches["deps_join"], "uncounted launch")
+    need(chk.calls["deps_join"] == k1_launches(launches), "uncounted launch")
     checked = chk.checked
     st = svc.stats()
     return {"T": t, "K": k, "B": b, "windows": windows, "answered": answered,
@@ -735,8 +953,7 @@ def phase_burn(ctx):
                 sync(ctx)
                 launches = dict(K.LAUNCHES)        # just after it
             checkers[name] = chk
-            need(all(v > 0 for v in launches.values()),
-                 f"{name} burn did not launch every kernel: {launches}")
+            need_csr_only(launches, f"{name} burn")
             need(res.stats.get("resolver_device_consults", 0) > 0,
                  f"{name} burn made no device consult")
             if name == "torch":
@@ -918,8 +1135,7 @@ def _cli_gate(ctx, tmp):
     need(dev["sim"] == host["sim"],
          f"gate smoke under the device tier {dev['sim']} differs from the "
          f"host resolver's {host['sim']}")
-    need(all(v > 0 for v in launches.values()),
-         f"the gate smoke under the device tier launched {launches}")
+    need_csr_only(launches, "the gate smoke under the device tier")
     need(rc == 0, "the port's gate failed under the device tier:\n"
          + report.getvalue()[-2000:])
     with open(history) as f:
@@ -960,9 +1176,8 @@ def phase_cli(ctx):
                      f"run {label}: no node restarted: {card['faults']}")
             consults = card["metrics"].get("resolver.device_consults", 0)
             need(consults > 0, f"run {label}: no device consult")
-            need(all(v > 0 for v in launches.values()),
-                 f"run {label}: the CLI run launched {launches}")
-            need(chk.calls["deps_join"] == launches["deps_join"],
+            need_csr_only(launches, f"run {label}: the CLI run")
+            need(chk.calls["deps_join"] == k1_launches(launches),
                  f"run {label}: uncounted launch")
             checked = chk.checked
             need(checked > 0, f"run {label}: no kernel call checked")
@@ -1187,9 +1402,8 @@ def phase_maelstrom(ctx):
              f"differs from the host backend's {host}")
         need(card["ok"] == MAELSTROM["ops"],
              f"maelstrom {label}: {card['ok']} of {MAELSTROM['ops']} ok")
-        need(all(v > 0 for v in launches.values()),
-             f"maelstrom {label}: launched {launches}")
-        need(chk.calls["deps_join"] == launches["deps_join"],
+        need_csr_only(launches, f"maelstrom {label}")
+        need(chk.calls["deps_join"] == k1_launches(launches),
              f"maelstrom {label}: uncounted launch")
         need(consults > 0, f"maelstrom {label}: no device consult")
         _keep_largest(ctx, "maelstrom", chk)
@@ -1217,8 +1431,8 @@ def phase_maelstrom(ctx):
         need(counts is not None, f"stdio binary ({backend}) reported no "
              f"counts at exit:\n{stderr[-2000:]}")
         if backend == "torch":
-            need(all(v > 0 for v in counts["launches"].values())
-                 and counts["device_consults"] > 0,
+            need_csr_only(counts["launches"], "stdio binary on the card")
+            need(counts["device_consults"] > 0,
                  f"stdio binary on the card: {counts}")
         else:
             need(not any(counts["launches"].values())
@@ -1326,9 +1540,8 @@ def phase_verify(ctx):
          f"{VERIFY['kw']['ops']}")
     need(card["resolver_device_consults"] > 0,
          "verify burn: no device consult")
-    need(all(v > 0 for v in launches.values()),
-         f"verify burn launched {launches}")
-    need(chk.calls["deps_join"] == launches["deps_join"],
+    need_csr_only(launches, "verify burn")
+    need(chk.calls["deps_join"] == k1_launches(launches),
          "verify burn: uncounted launch")
     need(chk.checked > 0, "verify burn: no kernel call checked")
     ctx["verify_launches"] = launches
@@ -1434,7 +1647,8 @@ class JoinCheck:
 
     def verify(self):
         for args, kwargs, got in self.pending:
-            want = self.k.deps_join_plain(*args, **kwargs)
+            want = self.k.deps_join_plain(
+                *args, **{k: v for k, v in kwargs.items() if k != "form"})
             need(self.torch.equal(got, want),
                  "deps_join differs from its plain version on the graph path")
             self.checked += 1
@@ -1574,8 +1788,8 @@ def _graph_step(ctx):
     wm = torch.from_numpy(_watermark(np, 1000 + n0 + (steps + 8) * b)).to(dev)
     profiles["gc_step"] = _profile(torch, lambda: cg.gc_step(state, wm))
     peak = torch.cuda.max_memory_allocated()
-    need(launches["deps_join"] == steps,
-         f"the graph path launched K1 {launches['deps_join']} times, "
+    need(k1_launches(launches) == steps,
+         f"the graph path launched K1 {k1_launches(launches)} times, "
          f"expected one per step ({steps})")
     need(chk.checked == steps, f"{chk.checked} K1 answers checked")
     need(gc_evicted > 0 and reused > 0,
@@ -1604,7 +1818,7 @@ def _graph_step(ctx):
                      for c in cand]
     out = {"T": t, "K": k, "B": b, "steps": steps, "gc_every": every,
            "prefilled": n0, "prefill_s": prefill_s,
-           "k1_launches": launches["deps_join"],
+           "k1_launches": k1_launches(launches),
            "k1_checked": chk.checked, "applied_per_step": applied,
            "edges_final": int(src.numel()), "gc_evicted": gc_evicted,
            "slots_reused": reused,
@@ -1912,7 +2126,7 @@ def _rank_numbers(np, results, key):
                if times[0][m] is not None else None
                for m in ("wall_ms", "device_ms", "collective_ms")}
         out.append(dict(med, k1_launches=sum(
-            x["launches"]["deps_join"] for x in times),
+            k1_launches(x["launches"]) for x in times),
             peak_bytes=v["peak_bytes"]))
     return out
 
@@ -2067,7 +2281,7 @@ def phase_mesh(ctx):
     for lw in dry["launches"]:
         for name, v in lw.items():
             launches[name] += v
-    need(all(v > 0 for v in launches.values()),
+    need(all(launches[n] > 0 for n in CSR_KERNELS),
          f"the mesh path did not launch every kernel: {launches}")
     ctx["mesh_launches"] = launches
     seconds = time.perf_counter() - t0
@@ -2364,14 +2578,15 @@ def phase_replay(ctx):
                         tiers[tier]["range_checked"]
                     need(checks > 0, f"{label}: {tier} checked no answer "
                          f"against the walk")
-                    if tiers[tier]["launches"]["deps_join"] > 0:
+                    if k1_launches(tiers[tier]["launches"]) > 0:
                         need(tiers[tier]["checked_calls"] > 0,
                              f"{label}: {tier} checked no kernel call")
                     if key_count == 6:
                         need(tiers[tier]["parity_checked"] > 0,
                              f"{label}: {tier} parity_checked 0")
                 need(tiers["device"]["device_consults"] > 0 and
-                     all(v > 0 for v in tiers["device"]["launches"].values()),
+                     all(tiers["device"]["launches"][n] > 0
+                         for n in CSR_KERNELS),
                      f"{label}: the device tier made no device consult")
                 r["calibrated"] = dict(tpu_resolver._CALIBRATED)
                 if key_count > 6:
@@ -2467,8 +2682,9 @@ def phase_bench(ctx):
             walls[fn] = time.perf_counter() - w0
         sync(ctx)
         launches = dict(K.LAUNCHES)          # just after them
-    need(all(v > 0 for v in launches.values()), f"bench launched {launches}")
-    need(chk.calls["deps_join"] == launches["deps_join"],
+    need(all(launches[n] > 0 for n in CSR_KERNELS),
+         f"bench launched {launches}")
+    need(chk.calls["deps_join"] == k1_launches(launches),
          "bench: uncounted launch")
     need(chk.checked > 0, "bench: no kernel call checked")
     ctx["bench_launches"] = launches
@@ -2488,55 +2704,71 @@ ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
 
 
 def kernels_line(ctx):
-    """One entry per kernel: the main path's (the burn's) launch count and
-    the numbers at the largest call it made, and the other paths' launch
-    counts: graph, mesh (summed over its ranks), cli and maelstrom (summed
-    over their runs on the card's backend), the Maelstrom binary's (as its
-    process reported them), verify, bench, and the replays' per
-    recording, target and tier; every other measured
-    shape (the full-size synthetic ones, the replays', the cli, Maelstrom,
-    verify and bench runs' largest calls, the full-width txn_step's K1 call, a
-    mesh rank's calls) under ``shapes``,
-    none of them launched on the main path."""
+    """One entry per kernel and form (K1, K2 in the CSR form; K1d, K2d in
+    the dense form): the main path's (the burn's) launch count and the
+    numbers at the largest call it made (the dense kernels: at config 4,
+    their own path: the service's consult of config 4's batch, which
+    join_form sends to them), and the other paths' launch counts: graph,
+    mesh (summed over its ranks), cli and maelstrom (summed over their runs
+    on the card's backend), the Maelstrom binary's (as its process reported
+    them), verify, bench, the replays' per recording, target and tier, and
+    the kernels phase's consult of each case (``config4_launches``: config
+    4's); every other measured shape (the full-size synthetic ones in both
+    forms, the paths' largest calls in both forms) under ``shapes``, each
+    with ``main_path_launches``: the burn's count of its kernel for the
+    burn's call, else 0."""
     largest = dict(ctx.get("replay_largest", {}))
     if ctx.get("burn_checker") is not None:
         largest["burn"] = ctx["burn_checker"].largest
+    calls = []
     for path in ("burn", "replay", "replay_wide"):
         for name, (_size, args, kwargs) in sorted(largest.get(path,
                                                               {}).items()):
-            measure(ctx, name, f"{path}_largest", args, kwargs, 20, path)
+            calls.append((name, f"{path}_largest", args, kwargs, path))
     ctx.pop("replay_largest", None)
     for name, (_size, args, kwargs) in sorted(ctx.get("cli_largest",
                                                       {}).items()):
-        measure(ctx, name, "cli_largest", args, kwargs, 20, "cli")
+        calls.append((name, "cli_largest", args, kwargs, "cli"))
     for path in ("maelstrom", "verify", "bench"):
         for name, (_size, args, kwargs) in sorted(
                 ctx.get("largest", {}).get(path, {}).items()):
-            measure(ctx, name, f"{path}_largest", args, kwargs, 20, path)
+            calls.append((name, f"{path}_largest", args, kwargs, path))
     if ctx.get("graph_join") is not None:
         args, kwargs = ctx["graph_join"]
-        measure(ctx, "deps_join", "graph_step_T{T}_K{K}_B{B}".format(**GRAPH),
-                args, kwargs, 20, "graph")
+        calls.append(("deps_join", "graph_step_T{T}_K{K}_B{B}".format(**GRAPH),
+                      args, kwargs, "graph"))
     if ctx.get("mesh_join") is not None:
         # a rank's join in the sharded step (rank 0, first batch), and
         # store 0's consult in the store-sharded consult
         args, kwargs = ctx["mesh_join"]
         label = "mesh_step_rank_T{}_K{K}_B{B}".format(
             MESH["T"] // MESH["ranks"], **MESH)
-        measure(ctx, "deps_join", label, args, kwargs, 20, "mesh")
+        calls.append(("deps_join", label, args, kwargs, "mesh"))
         jargs, margs = ctx["mesh_consult"]
         label = "mesh_store_T{T}_K{K}_B{B}".format(**MESH)
-        measure(ctx, "deps_join", label, jargs, {}, 20, "mesh")
-        measure(ctx, "max_conflict", label, margs, {}, 20, "mesh")
+        calls.append(("deps_join", label, jargs, {}, "mesh"))
+        calls.append(("max_conflict", label, margs, {}, "mesh"))
+    # each path's largest call in both forms: the one join_form picks
+    # (which launched on the path) and the other
+    for name, label, args, kwargs, path in calls:
+        for form in FORMS:
+            if form == "csr" or args[0].shape[1] % 16 == 0:
+                measure(ctx, name, label, args, kwargs, 20, path, form=form)
+    burn = ctx.get("burn_launches", {})
     entries = []
     for name in REPLACES:
         rows = [r for r in ctx["rows"] if r["name"] == name]
         if not rows:
             continue
-        head = next((r for r in rows if r["path"] == "burn"), rows[0])
-        e = {"name": name, "route": "cuda", "source": SOURCE,
+        # the headline: the burn's largest call for the CSR kernels (the
+        # main path), config 4 for the dense ones (the burn never takes them)
+        if name in CSR_KERNELS:
+            head = next((r for r in rows if r["path"] == "burn"), rows[0])
+        else:
+            head = next((r for r in rows if r["shape"] == CONFIG4), rows[0])
+        e = {"name": name, "route": "cuda", "source": SOURCES[name],
              "replaces": REPLACES[name],
-             "launches": ctx.get("burn_launches", {}).get(name, 0),
+             "launches": burn.get(name, 0),
              "replay_launches": ctx.get("replay_launches", {}).get(name, {}),
              "graph_launches": ctx.get("graph_launches", {}).get(name, 0),
              "mesh_launches": ctx.get("mesh_launches", {}).get(name, 0),
@@ -2546,9 +2778,16 @@ def kernels_line(ctx):
              "maelstrom_stdio_launches":
                  ctx.get("maelstrom_stdio_launches", {}).get(name, 0),
              "verify_launches": ctx.get("verify_launches", {}).get(name, 0),
-             "bench_launches": ctx.get("bench_launches", {}).get(name, 0)}
+             "bench_launches": ctx.get("bench_launches", {}).get(name, 0),
+             "config4_launches":
+                 ctx.get("auto_launches", {}).get(CONFIG4, {}).get(name, 0),
+             "kernels_auto_launches":
+                 {case: v.get(name, 0)
+                  for case, v in ctx.get("auto_launches", {}).items()}}
         e.update({k: head[k] for k in ROW_KEYS})
-        e["shapes"] = [dict({k: r[k] for k in ROW_KEYS}, main_path_launches=0)
+        e["shapes"] = [dict({k: r[k] for k in ROW_KEYS},
+                            main_path_launches=burn.get(name, 0)
+                            if r["path"] == "burn" else 0)
                        for r in rows if r is not head]
         entries.append(e)
     return {"kernels": entries}

@@ -28,21 +28,30 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(rng, t, k, b, device, width=3, wide=0, oob=False):
+def _inputs(rng, t, k, b, device, width=3, wide=0, oob=False, dups=0,
+            inactive=False, invalidated=False):
     """Random index and CSR query.  Rows take 0..``width`` keys; with
-    ``wide`` row 0 takes that many columns (duplicates included), and with
-    ``oob`` about a tenth of the columns fall outside [0, k)."""
+    ``wide`` row 0 takes that many columns (duplicates included), with
+    ``dups`` row 0 is that many copies of one column, and with ``oob``
+    about a tenth of the columns fall outside [0, k).  ``inactive`` and
+    ``invalidated`` make every slot so."""
     inc = (rng.random((k, t)) < 0.05).astype(np.uint8)
     lanes = rng.integers(0, 50, (t, 5)).astype(np.int32)
     ts = lanes + rng.integers(0, 3, (t, 5)).astype(np.int32)
     kind = rng.integers(0, 6, t).astype(np.int8)
     status = rng.integers(0, 7, t).astype(np.int8)
     active = rng.random(t) < 0.9
+    if inactive:
+        active[:] = False
+    if invalidated:
+        status[:] = gs.INVALIDATED
     lens = rng.integers(0, width + 1, b)
-    if wide:
-        lens[0] = wide
+    if wide or dups:
+        lens[0] = wide or dups
     offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
     cols = rng.integers(0, k, int(offsets[-1]) + 5).astype(np.int32)
+    if dups:
+        cols[:dups] = int(np.argmax(inc.sum(1)))
     if oob:
         bad = rng.random(cols.size) < 0.1
         cols[bad] = rng.choice([-7, -1, k, k + 100], int(bad.sum()))
@@ -63,9 +72,11 @@ def _args(g):
              g["cols"]))
 
 
-# (t, k, b, keyword arguments of _inputs).  A block takes 8 query rows and
-# up to 2,048 slots (fewer threads when T is below that); a block stages at
-# most 4,096 query columns at a time.
+# (t, k, b, keyword arguments of _inputs).  The CSR form: a block takes 8
+# query rows and up to 2,048 slots (fewer threads when T is below that) and
+# stages at most 4,096 query columns at a time.  The dense form: a block
+# takes 16 or 64 query rows and tiles of 128 slots in 16-byte stages, so
+# only T % 16 == 0 (other T raise), and stages keys 64 at a time.
 CASES = {
     "64-16-8": (64, 16, 8, {}),
     "1003-64-13": (1003, 64, 13, {}),
@@ -78,6 +89,15 @@ CASES = {
     "rows_without_keys": (512, 16, 11, {"width": 0}),
     "row_wider_than_stage": (4096, 64, 9, {"wide": 5000}),
     "out_of_range_columns": (2048, 32, 16, {"width": 6, "oob": True}),
+    "K_not_multiple_of_key_stage": (4096, 100, 20, {"width": 40}),
+    "B_above_row_tile": (2048, 128, 256, {"width": 64}),
+    "T_below_one_slot_tile": (96, 64, 13, {"width": 32}),
+    "T_not_multiple_of_16": (4100, 64, 30, {"width": 32}),
+    "T_multiple_of_16_not_of_slot_tile": (4112, 64, 30, {"width": 32}),
+    "all_slots_inactive": (2048, 64, 13, {"width": 32, "inactive": True}),
+    "all_slots_invalidated": (2048, 64, 13, {"width": 32,
+                                             "invalidated": True}),
+    "300_duplicate_columns": (2048, 64, 5, {"dups": 300}),
 }
 
 
@@ -87,16 +107,109 @@ def test_deps_join_and_max_conflict_equal_plain(cuda, case):
     g = _inputs(np.random.default_rng(t), t, k, b, cuda, **kw)
     args, margs = _args(g)
     before = dict(_kernels.LAUNCHES)
-    assert torch.equal(_kernels.deps_join(*args),
+    assert torch.equal(_kernels.deps_join(*args, form="csr"),
                        _kernels.deps_join_plain(*args))
     if t % 8 == 0:
-        assert torch.equal(_kernels.deps_join(*args, packed=True),
+        assert torch.equal(_kernels.deps_join(*args, packed=True, form="csr"),
                            _kernels.deps_join_plain(*args, packed=True))
-    assert torch.equal(_kernels.max_conflict(*margs),
+    assert torch.equal(_kernels.max_conflict(*margs, form="csr"),
                        _kernels.max_conflict_plain(*margs))
     torch.cuda.synchronize()
     assert _kernels.LAUNCHES["deps_join"] > before["deps_join"]
     assert _kernels.LAUNCHES["max_conflict"] == before["max_conflict"] + 1
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_dense_form_equals_plain_and_csr(cuda, case):
+    """K1d (bool and bit-packed) and K2d, forced, on every case: equal to
+    the plain versions and to the CSR form, one launch each counted under
+    the dense names and none under the CSR names; at T % 16 != 0 both
+    raise and launch nothing."""
+    t, k, b, kw = CASES[case]
+    g = _inputs(np.random.default_rng(t), t, k, b, cuda, **kw)
+    args, margs = _args(g)
+    if t % 16:
+        before = dict(_kernels.LAUNCHES)
+        with pytest.raises(ValueError):
+            _kernels.deps_join(*args, form="dense")
+        with pytest.raises(ValueError):
+            _kernels.max_conflict(*margs, form="dense")
+        assert _kernels.LAUNCHES == before
+        assert _kernels.join_form(b, t, k, 10 ** 9) == "csr"
+        return
+    packs = (False, True) if t % 8 == 0 else (False,)
+    csr = [_kernels.deps_join(*args, packed=pk, form="csr") for pk in packs]
+    csr_max = _kernels.max_conflict(*margs, form="csr")
+    torch.cuda.synchronize()
+    before = dict(_kernels.LAUNCHES)
+    for pk, want in zip(packs, csr):
+        got = _kernels.deps_join(*args, packed=pk, form="dense")
+        assert torch.equal(got, _kernels.deps_join_plain(*args, packed=pk))
+        assert torch.equal(got, want)
+    got = _kernels.max_conflict(*margs, form="dense")
+    assert torch.equal(got, _kernels.max_conflict_plain(*margs))
+    assert torch.equal(got, csr_max)
+    torch.cuda.synchronize()
+    after = dict(_kernels.LAUNCHES)
+    assert after["deps_join_dense"] == before["deps_join_dense"] + len(packs)
+    assert after["max_conflict_dense"] == before["max_conflict_dense"] + 1
+    assert after["deps_join"] == before["deps_join"]
+    assert after["max_conflict"] == before["max_conflict"]
+
+
+@pytest.mark.parametrize("width", [3, 128])
+def test_auto_form_follows_join_form(cuda, width):
+    """form="auto" launches the kernel join_form names for the call's sizes
+    (narrow rows: CSR; rows of ~64 keys at T = 8,192: dense), counted under
+    its name, with the plain version's answer."""
+    t, k, b = 8192, 256, 64
+    g = _inputs(np.random.default_rng(width), t, k, b, cuda, width=width)
+    args, margs = _args(g)
+    form = _kernels.join_form(b, t, k, g["cols"].numel())
+    suffix = "_dense" if form == "dense" else ""
+    before = dict(_kernels.LAUNCHES)
+    assert torch.equal(_kernels.deps_join(*args),
+                       _kernels.deps_join_plain(*args))
+    assert torch.equal(_kernels.max_conflict(*margs),
+                       _kernels.max_conflict_plain(*margs))
+    torch.cuda.synchronize()
+    for name in ("deps_join", "max_conflict"):
+        assert _kernels.LAUNCHES[name + suffix] == before[name + suffix] + 1
+    assert sum(_kernels.LAUNCHES.values()) == sum(before.values()) + 2
+
+
+def test_dense_form_needs_k_within_its_tile(cuda):
+    g = _inputs(np.random.default_rng(3), 64, _kernels.DENSE_MAX_K + 1, 4,
+                cuda)
+    args, margs = _args(g)
+    with pytest.raises(ValueError):
+        _kernels.deps_join(*args, form="dense")
+    with pytest.raises(ValueError):
+        _kernels.max_conflict(*margs, form="dense")
+    assert _kernels.join_form(4, 65536, _kernels.DENSE_MAX_K + 1,
+                              10 ** 9) == "csr"
+
+
+def test_dense_form_needs_an_aligned_index(cuda):
+    """An index whose first byte is not 16-byte aligned (a view one byte
+    into its storage) is refused by the dense form and taken by CSR."""
+    g = _inputs(np.random.default_rng(5), 256, 64, 8, cuda, width=32)
+    args, margs = _args(g)
+    inc = g["inc"]
+    flat = torch.empty(inc.numel() + 1, dtype=torch.uint8, device=cuda)
+    shifted = flat[1:].view(inc.shape)
+    shifted.copy_(inc)
+    assert shifted.data_ptr() % 16 != 0
+    before = dict(_kernels.LAUNCHES)
+    with pytest.raises(ValueError):
+        _kernels.deps_join(shifted, *args[1:], form="dense")
+    with pytest.raises(ValueError):
+        _kernels.max_conflict(shifted, *margs[1:], form="dense")
+    assert _kernels.LAUNCHES == before
+    assert torch.equal(_kernels.deps_join(shifted, *args[1:], form="csr"),
+                       _kernels.deps_join_plain(*args))
+    assert torch.equal(_kernels.max_conflict(shifted, *margs[1:], form="csr"),
+                       _kernels.max_conflict_plain(*margs))
 
 
 def test_negative_columns_on_card_equal_plain_and_cpu(cuda):
@@ -154,20 +267,24 @@ def test_negative_and_out_of_range_slots_on_card_equal_cpu(cuda, case):
         assert np.array_equal(gs.state_to_numpy(got)[name], v), name
 
 
-def test_graph_replays_equal_plain(cuda):
-    """K1 and K2, one tile and three, captured in one CUDA graph: every
-    replay's answers equal the plain versions, with the outputs overwritten
-    before each replay (a fold counter left over from an earlier replay
-    would leave K2's output unwritten)."""
-    sets = [_args(_inputs(np.random.default_rng(t), t, 64, 21, cuda))
-            for t in (256, 6147)]
+@pytest.mark.parametrize("form", ["csr", "dense"])
+def test_graph_replays_equal_plain(cuda, form):
+    """K1 and K2 in either form, one block per row group and several,
+    captured in one CUDA graph: every replay's answers equal the plain
+    versions, with the outputs overwritten before each replay (a fold
+    counter left over from an earlier replay would leave K2's output
+    unwritten)."""
+    sets = [_args(_inputs(np.random.default_rng(t), t, 64, 21, cuda,
+                          width=3 if form == "csr" else 32))
+            for t in ((120, 256, 6147) if form == "csr"
+                      else (112, 256, 6160))]
     want = [(_kernels.deps_join_plain(*a), _kernels.max_conflict_plain(*m))
             for a, m in sets]
     got = []
 
     def body():
-        got[:] = [(_kernels.deps_join(*a), _kernels.max_conflict(*m))
-                  for a, m in sets]
+        got[:] = [(_kernels.deps_join(*a, form=form),
+                   _kernels.max_conflict(*m, form=form)) for a, m in sets]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -234,10 +351,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 def test_txn_step_on_card_equals_cpu(cuda):
     """The entry point's step, three batches and a gc step, on the card and
     on the CPU: equal deps, applied masks and final state; one K1 launch per
-    step on the card."""
+    step on the card, in the form join_form picks."""
     fn, (st, bt) = entry(device=cuda)
     _, (st_c, bt_c) = entry(device="cpu")
-    before = _kernels.LAUNCHES["deps_join"]
+    k1 = ("deps_join", "deps_join_dense")
+    before = sum(_kernels.LAUNCHES[n] for n in k1)
     for step in range(3):
         shift = torch.tensor([0, 0, 64 * step, 0, 0], dtype=torch.int32)
         b_c = bt_c._replace(slots=bt_c.slots + 64 * step,
@@ -252,7 +370,7 @@ def test_txn_step_on_card_equals_cpu(cuda):
     for name in want:
         assert np.array_equal(got[name], want[name]), name
     torch.cuda.synchronize()
-    assert _kernels.LAUNCHES["deps_join"] == before + 3
+    assert sum(_kernels.LAUNCHES[n] for n in k1) == before + 3
 
 
 def test_graph_ops_on_card_equal_edge_twins_and_cpu(cuda):
@@ -282,7 +400,8 @@ def test_graph_ops_on_card_equal_edge_twins_and_cpu(cuda):
 def test_two_gloo_ranks_on_the_card_equal_single_card(cuda):
     """The sharded step (three batches) and the store-sharded consult (one
     store per rank) in two ranks over gloo on the one card: equal to the
-    single-card txn_step and consult, through K1/K2 in each rank."""
+    single-card txn_step and consult, through K1/K2 in each rank (in the
+    forms join_form picks)."""
     from cassandra_accord_tpu_torch.parallel import launch
     from cassandra_accord_tpu_torch.parallel import live_dryrun as ld
     fn, (st, bt) = entry(device=cuda)
@@ -318,7 +437,9 @@ def test_two_gloo_ranks_on_the_card_equal_single_card(cuda):
         for i, (cmax, applied) in enumerate(want):
             assert np.array_equal(steps["conflict_max"][i], cmax)
             assert np.array_equal(steps["applied"][i], applied)
-        assert r.launches == {"deps_join": 4, "max_conflict": 1}
+        n = r.launches
+        assert n["deps_join"] + n["deps_join_dense"] == 4
+        assert n["max_conflict"] + n["max_conflict_dense"] == 1
     full = gs.state_to_numpy(st)
     rows = full["key_inc"].shape[0] // 2
     for i, r in enumerate(res):

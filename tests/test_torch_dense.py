@@ -1,0 +1,269 @@
+"""The dense form of the consult kernels (K1d, K2d) on the CPU: the rule that
+picks CSR or dense, the one-shot and service consults with either form
+forced held against the JAX reference bit for bit, and bad forms.
+
+On the CPU every form runs the wrappers' plain versions, so these tests hold
+the plumbing of ``form`` and the answers at the shapes the dense form takes;
+the kernels themselves are held against the plain versions on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).  Inputs are made with
+numpy from fixed seeds and handed to both packages; the reference's Pallas
+join runs in interpret mode, as ``tests/test_ops_kernels.py`` runs it.
+"""
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from cassandra_accord_tpu.device_service.kernel import consult_t as ref_consult_t
+from cassandra_accord_tpu.ops import deps_kernels as ref_dk
+from cassandra_accord_tpu.ops.pallas_join import \
+    overlap_join_fused as ref_overlap_join_fused
+
+from cassandra_accord_tpu_torch.device_service.batch import build_batch
+from cassandra_accord_tpu_torch.device_service.kernel import ragged_consult_t
+from cassandra_accord_tpu_torch.ops import _kernels
+from cassandra_accord_tpu_torch.ops import deps_kernels as dk
+from cassandra_accord_tpu_torch.ops import graph_state as gs
+from cassandra_accord_tpu_torch.ops.pallas_join import overlap_join_fused
+
+K, B = 64, 13
+FORMS = ("csr", "dense")
+
+# ---------------------------------------------------------------------------
+# (a) the rule, at every shape of PERF.md's kernel table and its sweep
+# ---------------------------------------------------------------------------
+
+# (B, T, K, n_cols = cols.numel() as the path passes it, measured form).
+# The service pads flat_cols to a power-of-two bucket (floor 16), so its
+# n_cols is at most twice the keys its rows name.
+TABLE = {
+    "burn_largest": (8, 256, 16, 16, "csr"),
+    "burn_window": (8, 256, 16, 16, "csr"),
+    "cli_largest": (8, 128, 16, 16, "csr"),
+    "maelstrom_largest": (8, 128, 16, 16, "csr"),
+    "verify_largest": (8, 256, 16, 16, "csr"),
+    "bench_phase_largest": (256, 4096, 512, 512, "csr"),
+    "graph_step": (256, 65536, 512, 512, "csr"),
+    "shape_A": (256, 65536, 512, 512, "csr"),
+    "mesh_rank_step": (256, 16384, 512, 512, "csr"),
+    "mesh_store_consult": (256, 65536, 512, 512, "csr"),
+    "odd_T": (13, 1003, 64, 26, "csr"),
+    "two_tiles": (13, 2049, 64, 26, "csr"),
+    "pr3_replay_largest": (256, 65536, 1024, 2048, "csr"),
+    "six_key_replay_largest": (256, 65536, 1024, 512, "csr"),
+    "wide_replay_largest": (256, 4096, 8192, 256, "csr"),
+    "wide_replay_largest_runs_5_6": (256, 4096, 8192, 512, "csr"),
+    "config4": (64, 65536, 2048, 64 * 1024, "dense"),
+    "wide_row": (9, 65536, 512, 5000 + 8 * 2, "dense"),
+    # the sweep: config 4's index with 8 to 128 keys a row, and its
+    # 1,024-key rows over the first T slots (dense-faster at every T)
+    "sweep_config4_8keys": (64, 65536, 2048, 512, "csr"),
+    "sweep_config4_32keys": (64, 65536, 2048, 2048, "csr"),
+    "sweep_config4_128keys": (64, 65536, 2048, 8192, "dense"),
+    "sweep_config4_rows_T256": (64, 256, 2048, 65536, "dense"),
+    "sweep_config4_rows_T4096": (64, 4096, 2048, 65536, "dense"),
+    # rows naming every key of a 16-key index (the protocol paths'):
+    # CSR below one 64-key stage; of a 64- and a 256-key index: dense
+    "sweep_full_rows_K16_T4096": (8, 4096, 16, 128, "csr"),
+    "sweep_full_rows_K64_T256": (8, 256, 64, 512, "dense"),
+    "sweep_full_rows_K256_T128": (8, 128, 256, 2048, "dense"),
+    # the dense kernel takes T % 16 == 0 only
+    "config4_T_not_multiple_of_16": (64, 65544, 2048, 65536, "csr"),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(TABLE))
+def test_join_form_at_the_kernel_table_shapes(shape):
+    b, t, k, n_cols, want = TABLE[shape]
+    assert _kernels.join_form(b, t, k, n_cols) == want
+    # the same form whether the service's bucket padded the columns or not
+    padded = max(16, 1 << (n_cols - 1).bit_length())
+    assert _kernels.join_form(b, t, k, padded) == want
+
+
+# ---------------------------------------------------------------------------
+# (b) the consults with either form against the reference
+# ---------------------------------------------------------------------------
+
+def _index(rng, t, k=K):
+    key = (rng.random((t, k)) < 0.3).astype(np.int8)
+    live = key.copy()
+    live[rng.random((t, k)) < 0.2] = 0                  # covered incidences
+    txn_id = np.zeros((t, gs.TS_LANES), dtype=np.int32)
+    txn_id[:, 0] = 1
+    txn_id[:, 2] = rng.integers(1, 500, t)
+    txn_id[:, 4] = rng.integers(1, 8, t)
+    ts = txn_id.copy()
+    ts[:, 2] += rng.integers(-3, 40, t).astype(np.int32).clip(-ts[:, 2])
+    kind = rng.choice([0, 1, 3, 4], t).astype(np.int8)
+    status = rng.integers(gs.PREACCEPTED, gs.INVALIDATED + 1, t).astype(np.int8)
+    active = rng.random(t) < 0.9
+    return dict(live=live, key=key, ts=ts, txn_id=txn_id, kind=kind,
+                status=status, active=active)
+
+
+def _wide_rows(rng, b=B, k=K):
+    """Rows of 32-64 distinct keys each, as [B, K] int8 and as lists."""
+    rows = [sorted(int(c) for c in rng.choice(k, int(rng.integers(32, k + 1)),
+                                              replace=False))
+            for _ in range(b)]
+    q = np.zeros((b, k), dtype=np.int8)
+    for i, r in enumerate(rows):
+        q[i, r] = 1
+    before = np.zeros((b, gs.TS_LANES), dtype=np.int32)
+    before[:, 0] = 1
+    before[:, 2] = rng.integers(1, 520, b)
+    before[:, 4] = rng.integers(1, 8, b)
+    kind = rng.choice([0, 1, 3, 4], b).astype(np.int8)
+    return q, rows, before, kind
+
+
+def _ref(fn, *arrays, **kw):
+    out = fn(*(jnp.asarray(a) for a in arrays), **kw)
+    return tuple(np.asarray(o) for o in out) if isinstance(out, tuple) \
+        else np.asarray(out)
+
+
+def _port(fn, *arrays, **kw):
+    out = fn(*(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays), **kw)
+    return tuple(o.numpy() for o in out) if isinstance(out, tuple) \
+        else out.numpy()
+
+
+def _assert_equal(a, b):
+    assert a.dtype == b.dtype, (a.dtype, b.dtype)
+    assert a.shape == b.shape, (a.shape, b.shape)
+    assert np.array_equal(a, b)
+
+
+@functools.lru_cache(maxsize=None)
+def _one_shot_case(t):
+    """Inputs and the reference's answers at T = t, once per t."""
+    rng = np.random.default_rng(t)
+    ix = _index(rng, t)
+    q, _rows, before, kind = _wide_rows(rng)
+    consult = (ix["live"], ix["key"], ix["ts"], ix["txn_id"], ix["kind"],
+               ix["status"], ix["active"], q, before, kind)
+    join = (ix["live"], ix["txn_id"], ix["kind"], ix["status"], ix["active"],
+            q, before, kind)
+    mc = (ix["key"], ix["ts"], ix["txn_id"], ix["active"], q)
+    want = {"consult": _ref(ref_dk.consult, *consult),
+            "overlap_join": _ref(ref_dk.overlap_join, *join),
+            "overlap_join_fused": _ref(ref_overlap_join_fused, *join,
+                                       interpret=True),
+            "max_conflict_keys": _ref(ref_dk.max_conflict_keys, *mc)}
+    if t % 8 == 0:
+        want["consult_packed"] = _ref(ref_dk.consult_packed, *consult)
+    return dict(consult=consult, join=join, mc=mc), want
+
+
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("t", [61, 1003, 2049, 2056])
+def test_one_shot_consults_equal_reference(t, form):
+    """consult, consult_packed (T % 8 == 0), overlap_join,
+    max_conflict_keys and overlap_join_fused with ``form`` forced, on rows
+    of 32-64 of 64 keys, equal the reference's answers bit for bit (the
+    reference's Pallas join in interpret mode); equal to each other too,
+    as the Pallas join equals the XLA join."""
+    args, want = _one_shot_case(t)
+    got = {"consult": _port(dk.consult, *args["consult"], form=form),
+           "overlap_join": _port(dk.overlap_join, *args["join"], form=form),
+           "overlap_join_fused": _port(overlap_join_fused, *args["join"],
+                                       form=form),
+           "max_conflict_keys": _port(dk.max_conflict_keys, *args["mc"],
+                                      form=form)}
+    if t % 8 == 0:
+        got["consult_packed"] = _port(dk.consult_packed, *args["consult"],
+                                      form=form)
+    assert set(got) == set(want)
+    for name, w in want.items():
+        for a, b in zip(*(x if isinstance(x, tuple) else (x,)
+                          for x in (got[name], w))):
+            _assert_equal(a, b)
+    _assert_equal(want["overlap_join_fused"], want["overlap_join"])
+    assert want["overlap_join"].any()
+
+
+def _ragged_pair(ix, rows, before, kind, packed, form):
+    """(reference, port) answers of the service consult for ragged rows."""
+    batch = build_batch(rows, before, kind)
+    live_T = np.ascontiguousarray(ix["live"].T).astype(np.float32)
+    key_T = np.ascontiguousarray(ix["key"].T).astype(np.float32)
+    ref = ref_consult_t()(
+        jnp.asarray(live_T), jnp.asarray(key_T), jnp.asarray(ix["ts"]),
+        jnp.asarray(ix["txn_id"]), jnp.asarray(ix["kind"]),
+        jnp.asarray(ix["status"]), jnp.asarray(ix["active"]),
+        jnp.asarray(batch.flat_cols), jnp.asarray(batch.row_ids),
+        jnp.asarray(batch.weights), jnp.asarray(batch.before),
+        jnp.asarray(batch.kind), packed=packed)
+    t = torch.from_numpy
+    port = ragged_consult_t(
+        t(np.ascontiguousarray(ix["live"].T != 0).astype(np.uint8)),
+        t(np.ascontiguousarray(ix["key"].T != 0).astype(np.uint8)),
+        t(ix["ts"]), t(ix["txn_id"]), t(ix["kind"]), t(ix["status"]),
+        t(ix["active"]), t(batch.flat_cols), t(batch.offsets),
+        t(batch.before), t(batch.kind), packed=packed, form=form)
+    return [np.asarray(x) for x in ref], [x.numpy() for x in port]
+
+
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("t", [61, 1003, 2049, 2056])
+def test_ragged_consult_wide_rows_equal_reference(t, form):
+    """The service consult with ``form`` forced: rows of 32-64 keys, one row
+    of 300 duplicates of one column (a u8 operand summed would wrap at
+    256), and rows with columns -1 and -K (wrapped once) and K and -K-1
+    (dropped), equal the reference's kernel bit for bit; packed too where
+    T % 8 == 0."""
+    rng = np.random.default_rng(t + 1)
+    ix = _index(rng, t)
+    _q, rows, before, kind = _wide_rows(rng)
+    col = int(np.argmax(ix["live"].sum(0)))
+    rows[1] = [col] * 300
+    rows[2] = rows[2] + [-1, -K, K, -K - 1]
+    rows[3] = [K, -K - 1]
+    before[1, 2] = 600                                   # after every txn
+    before_rows = [tuple(int(v) for v in r) for r in before]
+    for packed in ((False, True) if t % 8 == 0 else (False,)):
+        ref, port = _ragged_pair(ix, rows, before_rows, [int(x) for x in kind],
+                                 packed, form)
+        for a, b in zip(port, ref):
+            _assert_equal(a, b)
+    deps, cmax = port
+    assert cmax[1].any() and not cmax[3].any()
+    assert not deps[3].any()
+
+
+# ---------------------------------------------------------------------------
+# (c) bad forms
+# ---------------------------------------------------------------------------
+
+def test_unknown_form_raises():
+    args, _want = _one_shot_case(61)
+    g = _index(np.random.default_rng(5), 64)
+    inc_T = torch.from_numpy(np.ascontiguousarray(g["live"].T).astype(np.uint8))
+    offsets = torch.tensor([0, 2], dtype=torch.int32)
+    cols = torch.tensor([1, 3], dtype=torch.int32)
+    lanes = torch.from_numpy(g["txn_id"])
+    jargs = (inc_T, lanes, torch.from_numpy(g["kind"]),
+             torch.from_numpy(g["status"]), torch.from_numpy(g["active"]),
+             offsets, cols, torch.ones((1, 5), dtype=torch.int32),
+             torch.ones((1,), dtype=torch.int8))
+    margs = (inc_T, torch.from_numpy(g["ts"]), lanes,
+             torch.from_numpy(g["active"]), offsets, cols)
+    for bad in ("sparse", "CSR", "", None):
+        with pytest.raises(ValueError):
+            _kernels.deps_join(*jargs, form=bad)
+        with pytest.raises(ValueError):
+            _kernels.max_conflict(*margs, form=bad)
+        with pytest.raises(ValueError):
+            _port(dk.consult, *args["consult"], form=bad)
+        with pytest.raises(ValueError):
+            _port(overlap_join_fused, *args["join"], form=bad)
+        with pytest.raises(ValueError):
+            ragged_consult_t(inc_T, inc_T, margs[1], lanes, jargs[2],
+                             jargs[3], jargs[4], cols, offsets, jargs[7],
+                             jargs[8], form=bad)
+    assert _kernels.FORMS == ("auto", "csr", "dense")

@@ -291,10 +291,15 @@ def test_live_state_sharded_consult_equals_reference(ranks, ref_mesh,
     _check_consult(ranks["live"], ref_mesh, ref_live)
 
 
+# every kernel and form counted, none launched (the CPU runs plain versions)
+NO_LAUNCHES = [{"deps_join": 0, "max_conflict": 0, "deps_join_dense": 0,
+                "max_conflict_dense": 0}]
+
+
 def test_rank_launches_are_reported(ranks):
     """On the CPU the kernels' plain versions answer, so no rank launched
     a kernel; each rank still reports its counts."""
-    assert ranks["launches"] == [{"deps_join": 0, "max_conflict": 0}] * N
+    assert ranks["launches"] == NO_LAUNCHES * N
 
 
 def test_dryrun_multichip_on_cpu_ranks():
@@ -302,7 +307,7 @@ def test_dryrun_multichip_on_cpu_ranks():
     out = dryrun_multichip(N, device="cpu", timeout_s=RANK_TIMEOUT_S)
     assert out["backend"] == "gloo" and out["ranks"] == N
     assert out["queries"] >= 1000 and out["frames"] >= 1
-    assert out["launches"] == [{"deps_join": 0, "max_conflict": 0}] * N
+    assert out["launches"] == NO_LAUNCHES * N
     assert os.environ.get("ACCORD_DEVICE") == env   # the burn's is undone
 
 
