@@ -1,6 +1,8 @@
 // Helpers shared by the consult kernels (consult.cu: the CSR form of K1 and
-// K2; dense_join.cu: their dense tensor-core form): the five-lane timestamp
-// order, the kind clamp, the witness table's transpose and the SM count.
+// K2; dense_join.cu and dense_join_tk.cu: their dense tensor-core forms on
+// the [K, T] and the [T, K] index): the five-lane timestamp order, the kind
+// clamp, the witness table's transpose, the SM count, the nibble-to-bytes
+// spread and the dense forms' cross-block fold of K2's partial maxima.
 #pragma once
 
 #include <cstdint>
@@ -78,6 +80,47 @@ cudaError_t sm_count(int* sms) {
   if (*sms <= 0) return cudaErrorInvalidDevice;
   if (dev < kMaxDevices) cached[dev] = *sms;
   return cudaSuccess;
+}
+
+// bits 0-3 of x -> bytes 0-3 (0 or 1 each)
+__device__ __forceinline__ uint32_t nibble_bytes(uint32_t x) {
+  return ((x & 0xFu) * 0x00204081u) & 0x01010101u;
+}
+
+constexpr int kFoldThreads = 128;                // the fold kernel's blocks
+
+// out[b] = the lex max of row b's partials [b, 0 .. ny-1, 5] (lanes >= 0):
+// a block per row, a few partials per thread, then the warps' maxima
+__global__ void __launch_bounds__(kFoldThreads)
+fold_kernel(const int32_t* __restrict__ partial, int ny,
+            int32_t* __restrict__ out) {
+  __shared__ int32_t s_warp[kFoldThreads / 32][kLanes];
+  const size_t b = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int32_t mine[kLanes] = {-1, -1, -1, -1, -1};
+  for (int y = threadIdx.x; y < ny; y += kFoldThreads) {
+    int32_t cand[kLanes];
+#pragma unroll
+    for (int l = 0; l < kLanes; ++l) {
+      cand[l] = __ldg(partial + (b * ny + y) * kLanes + l);
+    }
+    take_max(mine, cand);
+  }
+  int32_t best[kLanes];
+  warp_lex_max(mine, best);
+  if (lane == 0) {
+#pragma unroll
+    for (int l = 0; l < kLanes; ++l) s_warp[warp][l] = best[l];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int32_t r[kLanes] = {0, 0, 0, 0, 0};
+#pragma unroll
+    for (int w = 0; w < kFoldThreads / 32; ++w) take_max(r, s_warp[w]);
+#pragma unroll
+    for (int l = 0; l < kLanes; ++l) out[b * kLanes + l] = r[l];
+  }
 }
 
 }  // namespace

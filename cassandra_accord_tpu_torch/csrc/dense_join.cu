@@ -121,7 +121,6 @@ constexpr int kStages = 3;
 constexpr int kStageBytes = kChunkK * kTileT;    // [64 keys][128 slots] u8
 constexpr int kBlocksPerSM = 4;                  // persistent grid target
 constexpr int kQueryThreads = 256;               // the query kernel's blocks
-constexpr int kFoldThreads = 128;                // the fold kernel's blocks
 
 enum Mode { kDeps = 0, kMax = 1 };
 
@@ -154,11 +153,6 @@ __device__ __forceinline__ void mma_u8(int (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// bits 0-3 of x -> bytes 0-3 (0 or 1 each)
-__device__ __forceinline__ uint32_t nibble_bytes(uint32_t x) {
-  return ((x & 0xFu) * 0x00204081u) & 0x01010101u;
 }
 
 // r[j] = bytes (slot 0..3) of key row j  ->  a[i] = bytes (key 0..3) of slot i
@@ -481,40 +475,6 @@ dense_kernel(const uint8_t* __restrict__ inc,      // [K, T]
 #pragma unroll
       for (int l = 0; l < kLanes; ++l) dst[l] = s_best[tid][l];
     }
-  }
-}
-
-// out[b] = the lex max of row b's partials [b, 0 .. ny-1, 5] (lanes >= 0):
-// a block per row, a few partials per thread, then the warps' maxima
-__global__ void __launch_bounds__(kFoldThreads)
-fold_kernel(const int32_t* __restrict__ partial, int ny,
-            int32_t* __restrict__ out) {
-  __shared__ int32_t s_warp[kFoldThreads / 32][kLanes];
-  const size_t b = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int32_t mine[kLanes] = {-1, -1, -1, -1, -1};
-  for (int y = threadIdx.x; y < ny; y += kFoldThreads) {
-    int32_t cand[kLanes];
-#pragma unroll
-    for (int l = 0; l < kLanes; ++l) {
-      cand[l] = __ldg(partial + (b * ny + y) * kLanes + l);
-    }
-    take_max(mine, cand);
-  }
-  int32_t best[kLanes];
-  warp_lex_max(mine, best);
-  if (lane == 0) {
-#pragma unroll
-    for (int l = 0; l < kLanes; ++l) s_warp[warp][l] = best[l];
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int32_t r[kLanes] = {0, 0, 0, 0, 0};
-#pragma unroll
-    for (int w = 0; w < kFoldThreads / 32; ++w) take_max(r, s_warp[w]);
-#pragma unroll
-    for (int l = 0; l < kLanes; ++l) out[b * kLanes + l] = r[l];
   }
 }
 

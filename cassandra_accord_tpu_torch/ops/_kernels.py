@@ -13,6 +13,14 @@ hand-written CUDA for sm_90a, with the same arguments and answers:
   call reads once per 64 query rows (K*T bytes).  Launches count as
   ``deps_join_dense`` / ``max_conflict_dense``.
 
+and a third entry pair for the callers that hold the index as the
+reference does, ``[T, K]`` (``ops/deps_kernels.py``'s one-shot consults,
+the model and sharded steps): ``deps_join_tk`` / ``max_conflict_tk``
+(csrc/dense_join_tk.cu), the dense product on ``[T, K]`` and the ``[B, K]``
+query as they lie, through a TMA ring and int8 wgmma, so those callers
+transpose nothing and build no CSR query.  Launches count as
+``deps_join_dense_tk`` / ``max_conflict_dense_tk``.
+
 Each source's header says what bounds it on the H100.
 
 The rule.  ``form="auto"`` (the default) takes ``join_form(b, t, k,
@@ -23,7 +31,10 @@ per index key and 64-row tile, K lies in [``DENSE_MIN_K``, ``DENSE_MAX_K``]
 and T is a multiple of 16; else CSR.  Nothing is read back from the card to decide.
 The constants come from a sweep of both forms on the card (PERF.md §6).
 ``form="csr"`` or ``"dense"`` forces a form (tests, ``chip_smoke.py``);
-any other value raises.
+any other value raises.  For a ``[T, K]`` caller ``join_form(b, t, k,
+layout="tk")`` picks between the ``[T, K]`` entries ("dense") and the
+transpose, CSR query and ``[K, T]`` wrappers ("csr"), from a sweep of the
+one-shot consult's two routes on the card (PERF.md §6).
 
 Build: every ``*.cu`` under ``csrc/`` is compiled by its own ``nvcc
 -gencode arch=compute_90a,code=sm_90a -O3 -c``, all started together, and
@@ -46,7 +57,9 @@ query a CSR pair ``offsets [B+1]`` / ``cols [N]`` int32 (duplicates legal,
 entries past ``offsets[B]`` ignored; a column in [-K, -1] names column + K
 and the others outside [0, K) are dropped, in the kernels and the plain
 versions alike, as the reference's densify), lanes ``[*, 5]`` int32, kinds
-and statuses int8, ``active`` bool.
+and statuses int8, ``active`` bool.  The ``_tk`` entries take the index as
+``[T, K]`` and the query as dense ``[B, K]``, both uint8 with any nonzero
+byte a member, row-major.
 """
 from __future__ import annotations
 
@@ -74,7 +87,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # kernel launches that reached the card, per kernel and form (tests and
 # chip_smoke.py zero these before a run and read them after)
 LAUNCHES: Dict[str, int] = {"deps_join": 0, "max_conflict": 0,
-                            "deps_join_dense": 0, "max_conflict_dense": 0}
+                            "deps_join_dense": 0, "max_conflict_dense": 0,
+                            "deps_join_dense_tk": 0,
+                            "max_conflict_dense_tk": 0}
 
 FORMS = ("auto", "csr", "dense")
 # the dense form's query tile holds 64 rows of K bits in shared memory
@@ -172,6 +187,13 @@ def lib() -> ctypes.CDLL:
                    so.max_conflict_dense_scratch_ints):
             fn.argtypes = [i32, i32, i32]
             fn.restype = ctypes.c_longlong
+        so.deps_join_tk_launch.argtypes = [vp] * 8 + \
+            [ctypes.c_ulonglong] + [i32] * 6 + [vp] * 2
+        so.deps_join_tk_launch.restype = i32
+        so.max_conflict_tk_launch.argtypes = [vp] * 5 + [i32] * 3 + [vp] * 3
+        so.max_conflict_tk_launch.restype = i32
+        so.max_conflict_tk_scratch_ints.argtypes = [i32, i32]
+        so.max_conflict_tk_scratch_ints.restype = ctypes.c_longlong
         _LIB = so
     return _LIB
 
@@ -252,15 +274,33 @@ def pack_bits(mask: torch.Tensor) -> torch.Tensor:
         .to(torch.uint8)
 
 
-def deps_join_plain(inc_T, txn_id, kind, status, active, offsets, cols,
-                    before, qkind, packed: bool = False) -> torch.Tensor:
-    share = _share(inc_T, offsets, cols)                               # [B, T]
+def _share_tk(inc: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
+    """[B, T] key overlap of the [B, K] query and the [T, K] index, each
+    nonzero byte a member (the kernel's u8 x u8 reading); f32 sums of 0/1
+    products, exact below 2^24 keys."""
+    return ((query != 0).float() @ (inc != 0).float().t()) > 0
+
+
+def _deps_mask(share, txn_id, kind, status, active, before, qkind, packed):
     started = ts_less(txn_id[None, :, :], before[:, None, :])          # [B, T]
-    wit = witnesses_on(inc_T.device)[_kind_index(qkind)[:, None],
+    wit = witnesses_on(share.device)[_kind_index(qkind)[:, None],
                                      _kind_index(kind)[None, :]]       # [B, T]
     eligible = active & (status != INVALIDATED)                        # [T]
     deps = share & started & wit & eligible[None, :]
     return pack_bits(deps) if packed else deps
+
+
+def deps_join_plain(inc_T, txn_id, kind, status, active, offsets, cols,
+                    before, qkind, packed: bool = False) -> torch.Tensor:
+    return _deps_mask(_share(inc_T, offsets, cols), txn_id, kind, status,
+                      active, before, qkind, packed)
+
+
+def deps_join_tk_plain(inc, txn_id, kind, status, active, query, before,
+                       qkind, packed: bool = False) -> torch.Tensor:
+    """K1 on the [T, K] index and the dense [B, K] query."""
+    return _deps_mask(_share_tk(inc, query), txn_id, kind, status, active,
+                      before, qkind, packed)
 
 
 def lex_max_masked(vals: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -282,11 +322,20 @@ def lex_max_masked(vals: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.stack(out, dim=-1).to(torch.int32)    # [B, L]
 
 
-def max_conflict_plain(inc_T, ts, txn_id, active, offsets,
-                       cols) -> torch.Tensor:
-    mask = _share(inc_T, offsets, cols) & active[None, :]              # [B, T]
+def _max_of(share, ts, txn_id, active):
+    mask = share & active[None, :]                                     # [B, T]
     per_slot = torch.where(ts_less(ts, txn_id)[:, None], txn_id, ts)   # [T, 5]
     return lex_max_masked(per_slot[None, :, :], mask)
+
+
+def max_conflict_plain(inc_T, ts, txn_id, active, offsets,
+                       cols) -> torch.Tensor:
+    return _max_of(_share(inc_T, offsets, cols), ts, txn_id, active)
+
+
+def max_conflict_tk_plain(inc, ts, txn_id, active, query) -> torch.Tensor:
+    """K2 on the [T, K] index and the dense [B, K] query."""
+    return _max_of(_share_tk(inc, query), ts, txn_id, active)
 
 
 # ---------------------------------------------------------------------------
@@ -331,15 +380,36 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def join_form(b: int, t: int, k: int, n_cols: int) -> str:
-    """"dense" or "csr" for a call of B rows over a [K, T] index whose query
-    holds ``n_cols`` columns (``cols.numel()``): dense when the rows name at
+def tk_refusal(k: int, *tensors: torch.Tensor) -> Optional[str]:
+    """Why the [T, K] kernels cannot take an index and query of K keys at
+    these addresses (their tensor maps need a row stride of a multiple of
+    16 bytes and 16-byte aligned bases), or None."""
+    if k % 16 or not 16 <= k <= DENSE_MAX_K:
+        return f"K % 16 == 0 and 16 <= K <= {DENSE_MAX_K}, got K={k}"
+    bad = [x.data_ptr() % 16 for x in tensors if x.data_ptr() % 16]
+    if bad:
+        return f"16-byte aligned index and query, got address % 16 = {bad}"
+    return None
+
+
+def join_form(b: int, t: int, k: int, n_cols: Optional[int] = None,
+              layout: str = "kt") -> str:
+    """"dense" or "csr" for a call of B rows over an index of T slots and K
+    keys.  ``layout="kt"`` (the service's [K, T] index, a CSR query of
+    ``n_cols`` columns, ``cols.numel()``): dense when the rows name at
     least DENSE_COLS_PER_KEY columns per key and 64-row tile (the CSR form
     re-reads n_cols*T index bytes, the dense form K*T per tile), K is at
     least DENSE_MIN_K (below it rows are short and the CSR form's single
     launch is cheaper) and at most DENSE_MAX_K, and T is a multiple of 16
-    (the dense kernel's 16-byte stages).  Host-known sizes only: nothing
-    is read back from the card."""
+    (the dense kernel's 16-byte stages).  ``layout="tk"`` (a [T, K] index
+    and a dense [B, K] query, whose CSR form first transposes the index
+    and reads the query's size back): dense whenever the [T, K] kernels
+    take K (``tk_refusal``).  Host-known sizes only: nothing is read back
+    from the card."""
+    if layout == "tk":
+        return "dense" if tk_refusal(k) is None else "csr"
+    if layout != "kt":
+        raise ValueError(f"layout must be 'kt' or 'tk', got {layout!r}")
     tiles = -(-b // DENSE_ROWS)
     if (DENSE_MIN_K <= k <= DENSE_MAX_K and t % 16 == 0
             and n_cols >= DENSE_COLS_PER_KEY * k * tiles):
@@ -411,6 +481,81 @@ def deps_join(inc_T, txn_id, kind, status, active, offsets, cols, before,
     else:
         rc = so.deps_join_launch(*args, int(bool(packed)), _ptr(out),
                                  _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+    return out
+
+
+def _check_tk(inc, query, txn_id, active, before=None):
+    dev = inc.device
+    if dev.type != "cuda":
+        raise ValueError(f"the consult kernels take CUDA or CPU tensors, got {dev}")
+    t, k = inc.shape
+    b = query.shape[0]
+    _check("inc", inc, torch.uint8, (t, k), dev)
+    _check("query", query, torch.uint8, (b, k), dev)
+    _check("txn_id", txn_id, torch.int32, (t, TS_LANES), dev)
+    _check("active", active, torch.bool, (t,), dev)
+    if before is not None:
+        _check("before", before, torch.int32, (b, TS_LANES), dev)
+    if t >= 2 ** 31 or b >= 2 ** 19:
+        raise ValueError(f"shape out of the kernels' range: B={b} T={t} K={k}")
+    why = tk_refusal(k, inc, query)
+    if why is not None:
+        raise ValueError(f"the [T, K] kernels take {why}")
+    return b, t, k
+
+
+def deps_join_tk(inc, txn_id, kind, status, active, query, before, qkind,
+                 packed: bool = False) -> torch.Tensor:
+    """K1d on the [T, K] index ``inc`` and the dense [B, K] ``query`` (uint8,
+    each nonzero byte a member): the dependency mask [B, T] bool, or
+    [B, T/8] uint8 bit-packed (csrc/dense_join_tk.cu)."""
+    if inc.device.type == "cpu":
+        return deps_join_tk_plain(inc, txn_id, kind, status, active, query,
+                                  before, qkind, packed)
+    b, t, k = _check_tk(inc, query, txn_id, active, before)
+    dev = inc.device
+    _check("kind", kind, torch.int8, (t,), dev)
+    _check("status", status, torch.int8, (t,), dev)
+    _check("qkind", qkind, torch.int8, (b,), dev)
+    if packed and t % 8:
+        raise ValueError(f"bit-packed output needs T % 8 == 0, got T={t}")
+    out = torch.empty((b, t // 8) if packed else (b, t),
+                      dtype=torch.uint8 if packed else torch.bool, device=dev)
+    if b == 0 or t == 0:
+        return out
+    rc = lib().deps_join_tk_launch(
+        _ptr(inc), _ptr(query), _ptr(txn_id), _ptr(kind), _ptr(status),
+        _ptr(active), _ptr(before), _ptr(qkind), ctypes.c_ulonglong(_WIT_BITS),
+        _WIT_NP.shape[0], INVALIDATED, b, t, k, int(bool(packed)), _ptr(out),
+        _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"deps_join_dense_tk launch failed: CUDA error {rc}")
+    LAUNCHES["deps_join_dense_tk"] += 1
+    return out
+
+
+def max_conflict_tk(inc, ts, txn_id, active, query) -> torch.Tensor:
+    """K2d on the [T, K] index and the dense [B, K] query: per row the lex
+    max [B, 5] int32 of max(ts, txn_id) over the active slots sharing a
+    key, zero lanes when none (csrc/dense_join_tk.cu)."""
+    if inc.device.type == "cpu":
+        return max_conflict_tk_plain(inc, ts, txn_id, active, query)
+    b, t, k = _check_tk(inc, query, txn_id, active)
+    dev = inc.device
+    _check("ts", ts, torch.int32, (t, TS_LANES), dev)
+    out = torch.empty((b, TS_LANES), dtype=torch.int32, device=dev)
+    if b == 0 or t == 0:
+        return out.zero_()
+    so = lib()
+    name = "max_conflict_dense_tk"
+    # scratch: the partials of a row tile several blocks share
+    scratch = _scratch(so.max_conflict_tk_scratch_ints(b, t), name, dev)
+    rc = so.max_conflict_tk_launch(
+        _ptr(inc), _ptr(query), _ptr(ts), _ptr(txn_id), _ptr(active), b, t, k,
+        _ptr_or_null(scratch), _ptr(out), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1

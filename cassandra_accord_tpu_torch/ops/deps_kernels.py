@@ -19,15 +19,21 @@ incidence, ``[*, 5]`` int32 timestamp lanes, ``[T, T]`` int8 adjacency.
                           (Commands.maybeExecute, Commands.java:617).
 - ``scc_condense``      <- cycle handling (Commands.java:707-775).
 
-The join functions convert to the kernels' layout — the incidence
-transposed to ``[K, T]`` uint8, the query to CSR — and call kernel K1
-(``_kernels.deps_join``) and/or K2 (``_kernels.max_conflict``).  On CPU
-tensors those wrappers run their plain torch versions; on CUDA tensors the
-hand-written kernels, CSR (csrc/consult.cu) or dense (csrc/dense_join.cu)
-by ``_kernels.join_form`` unless a caller's ``form`` says.  The graph
-functions are ``jax.jit`` code in the reference, not Pallas, so they are
-torch ops on the tensors' device; their while loops are Python loops with
-the reference's bounds, reading one flag back from the device per round.
+The join functions hand the ``[T, K]`` index and the ``[B, K]`` query as
+they lie to the dense kernels K1d/K2d on that layout
+(``_kernels.deps_join_tk`` / ``max_conflict_tk``, csrc/dense_join_tk.cu)
+when ``_kernels.join_form(..., layout="tk")`` says dense (K % 16 == 0 and
+aligned bases) or ``form="dense"`` forces it (a shape they refuse then
+raises); otherwise they convert to the ``[K, T]`` wrappers' layout — the
+incidence transposed to ``[K, T]`` uint8, the query to CSR, whose size
+is read back — and call K1 (``_kernels.deps_join``) and/or K2
+(``_kernels.max_conflict``), CSR (csrc/consult.cu) or dense
+(csrc/dense_join.cu) by ``_kernels.join_form`` unless ``form="csr"``
+forces CSR.  On CPU tensors every wrapper runs its plain torch version.
+The graph functions are ``jax.jit`` code in the reference, not Pallas, so
+they are torch ops on the tensors' device; their while loops are Python
+loops with the reference's bounds, reading one flag back from the device
+per round.
 """
 from __future__ import annotations
 
@@ -109,13 +115,48 @@ def _bool(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bool).contiguous()
 
 
-def _join(inc_T, index_txn_id, index_kind, index_status, index_active,
+def _bytes(x: torch.Tensor) -> torch.Tensor:
+    """A 0/1 incidence as the [T, K] kernels read it, uint8 with each
+    nonzero byte a member: int8, uint8 and bool tensors are viewed, not
+    copied."""
+    x = x.contiguous()
+    if x.dtype in (torch.int8, torch.uint8, torch.bool):
+        return x.view(torch.uint8)
+    return (x != 0).to(torch.uint8)
+
+
+def _tk_dense(form: str, *incidences: torch.Tensor) -> bool:
+    """Whether a call over these [T, K] incidences (the query last, as
+    ``_bytes`` gives them) goes to the [T, K] kernels: by the rule for
+    "auto" (an index or query they cannot take goes to CSR), always for a
+    forced "dense" (which raises on such a one), never for "csr"."""
+    _kernels._check_form(form)
+    if form == "csr":
+        return False
+    t, k = incidences[0].shape
+    on_card = incidences[0].device.type == "cuda"
+    why = _kernels.tk_refusal(k, *(incidences if on_card else ()))
+    if form == "dense":
+        if why is not None:
+            raise ValueError(f"the [T, K] kernels take {why}")
+        return True
+    b = incidences[-1].shape[0]
+    return why is None and _kernels.join_form(b, t, k, layout="tk") == "dense"
+
+
+def _join(index_key_inc, index_txn_id, index_kind, index_status, index_active,
           batch_key_inc, batch_before, batch_kind, packed=False, form="auto"):
+    inc, query = _bytes(index_key_inc), _bytes(batch_key_inc)
+    if _tk_dense(form, inc, query):
+        return _kernels.deps_join_tk(
+            inc, _i32(index_txn_id), _i8(index_kind), _i8(index_status),
+            _bool(index_active), query, _i32(batch_before), _i8(batch_kind),
+            packed=packed)
     offsets, cols = query_csr(batch_key_inc)
     return _kernels.deps_join(
-        inc_T, _i32(index_txn_id), _i8(index_kind), _i8(index_status),
-        _bool(index_active), offsets, cols, _i32(batch_before),
-        _i8(batch_kind), packed=packed, form=form)
+        incidence_T(index_key_inc), _i32(index_txn_id), _i8(index_kind),
+        _i8(index_status), _bool(index_active), offsets, cols,
+        _i32(batch_before), _i8(batch_kind), packed=packed, form=form)
 
 
 def overlap_join(index_key_inc: torch.Tensor,   # [T, K] int8 — in-flight txns
@@ -132,12 +173,12 @@ def overlap_join(index_key_inc: torch.Tensor,   # [T, K] int8 — in-flight txns
     depend on: shares >=1 key, witness-matrix hit, active, not invalidated,
     and STARTED BEFORE the query bound (mapReduceActive's
     TestStartedAt.STARTED_BEFORE, SafeCommandStore.java:65-72).  ``form``
-    picks K1's kernel (``_kernels.join_form``).
+    picks K1's kernel (``_kernels.join_form`` with ``layout="tk"``).
 
     Returns deps: [B, T] bool."""
-    return _join(incidence_T(index_key_inc), index_txn_id, index_kind,
-                 index_status, index_active, batch_key_inc, batch_before,
-                 batch_kind, form=form)
+    return _join(index_key_inc, index_txn_id, index_kind, index_status,
+                 index_active, batch_key_inc, batch_before, batch_kind,
+                 form=form)
 
 
 def max_conflict_keys(index_key_inc: torch.Tensor,  # [T, K] int8
@@ -150,6 +191,11 @@ def max_conflict_keys(index_key_inc: torch.Tensor,  # [T, K] int8
     """Per query, the lexicographic max of max(executeAt, txnId) over every
     active indexed txn sharing a key.  Returns [B, 5] int32 (zero lanes =
     none)."""
+    inc, query = _bytes(index_key_inc), _bytes(batch_key_inc)
+    if _tk_dense(form, inc, query):
+        return _kernels.max_conflict_tk(inc, _i32(index_ts),
+                                        _i32(index_txn_id),
+                                        _bool(index_active), query)
     offsets, cols = query_csr(batch_key_inc)
     return _kernels.max_conflict(
         incidence_T(index_key_inc), _i32(index_ts), _i32(index_txn_id),
@@ -159,6 +205,15 @@ def max_conflict_keys(index_key_inc: torch.Tensor,  # [T, K] int8
 def _consult(index_live_inc, index_key_inc, index_ts, index_txn_id,
              index_kind, index_status, index_active, batch_key_inc,
              batch_before, batch_kind, packed, form):
+    live, key, query = (_bytes(x) for x in (index_live_inc, index_key_inc,
+                                            batch_key_inc))
+    if _tk_dense(form, live, key, query):
+        txn_id, active = _i32(index_txn_id), _bool(index_active)
+        deps = _kernels.deps_join_tk(
+            live, txn_id, _i8(index_kind), _i8(index_status), active, query,
+            _i32(batch_before), _i8(batch_kind), packed=packed)
+        return deps, _kernels.max_conflict_tk(key, _i32(index_ts), txn_id,
+                                              active, query)
     offsets, cols = query_csr(batch_key_inc)
     deps = _kernels.deps_join(
         incidence_T(index_live_inc), _i32(index_txn_id), _i8(index_kind),

@@ -4,19 +4,20 @@ The reference (``cassandra_accord_tpu/ops/pallas_join.py``) hand-fused the
 started-before x witness x eligible mask into the epilogue of a Pallas
 matmul kernel (``_join_kernel``, launched at :61), with the predicate built
 outside as a [B, T] f32 mask.  Here the entry point goes to kernel K1
-(``_kernels.deps_join``, csrc/consult.cu), which evaluates the predicate
-inside the kernel from the lane, kind, status and active vectors, so no
-[B, T] mask is built (its dense form, csrc/dense_join.cu, is the Pallas
-kernel's own shape: the product on the tensor cores, the mask fused in its
-epilogue); its plain torch version
-(``_kernels.deps_join_plain``) runs for CPU tensors.  A drop-in for
-``deps_kernels.overlap_join``.
+through ``deps_kernels._join``: by ``_kernels.join_form`` (``layout="tk"``)
+the dense kernel on the [T, K] index as given (``_kernels.deps_join_tk``,
+csrc/dense_join_tk.cu: the Pallas kernel's own operand layout, the product
+on the tensor cores with the predicate, evaluated from the lane, kind,
+status and active vectors, fused in its epilogue, so no [B, T] mask is
+built), else the transposed index and a CSR query through K1
+(``_kernels.deps_join``); the plain torch versions run for CPU tensors.  A
+drop-in for ``deps_kernels.overlap_join``.
 """
 from __future__ import annotations
 
 import torch
 
-from .deps_kernels import _join, incidence_T
+from .deps_kernels import _join
 
 
 def overlap_join_fused(index_key_inc: torch.Tensor,   # [T, K] int8
@@ -30,8 +31,8 @@ def overlap_join_fused(index_key_inc: torch.Tensor,   # [T, K] int8
                        form: str = "auto",
                        ) -> torch.Tensor:
     """Drop-in for deps_kernels.overlap_join through kernel K1 (``form``
-    picks its CSR or dense kernel, ``_kernels.join_form``).  Returns
-    [B, T] bool."""
-    return _join(incidence_T(index_key_inc), index_txn_id, index_kind,
-                 index_status, index_active, batch_key_inc, batch_txn_id,
-                 batch_kind, form=form)
+    picks its kernel, ``_kernels.join_form`` with ``layout="tk"``).
+    Returns [B, T] bool."""
+    return _join(index_key_inc, index_txn_id, index_kind, index_status,
+                 index_active, batch_key_inc, batch_txn_id, batch_kind,
+                 form=form)

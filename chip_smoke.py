@@ -11,20 +11,33 @@ Phases, one JSON line each; any failure exits non-zero:
 1. env      torch/CUDA versions, nvcc, the card's name and power limit;
 2. build    nvcc of every csrc/*.cu for sm_90a (all started together),
             linked into one library, with its time;
-3. kernels  K1 (deps_join) and K2 (max_conflict) in both forms, CSR
-            (csrc/consult.cu) and dense (csrc/dense_join.cu: K1d, K2d), at
+3. kernels  K1 (deps_join) and K2 (max_conflict) in both forms over the
+            [K, T] index, CSR (csrc/consult.cu) and dense
+            (csrc/dense_join.cu: K1d, K2d), and K1d/K2d on the [T, K] index
+            as it lies (csrc/dense_join_tk.cu: TMA ring, int8 wgmma), at
             full size against their plain torch versions, exactly (the
-            eager answer and the graph replays' answers), and on rows with
-            columns -1, -K, K and -K-1 (wrapped once or dropped, as the
-            reference's densify does); each case once more through the
-            service's consult (ragged_consult_t), whose wrappers pick the
-            form (join_form), launches counted: config 4 and the wide row
-            on K1d/K2d, the rest on K1/K2 (the dense form refuses the
-            cases with T % 16 != 0, checked); the sweep of both forms in
+            eager answer and the graph replays' answers; the [T, K] ones
+            also against the [K, T] answers, and with a K tail of 80), and
+            on rows with columns -1, -K, K and -K-1 (wrapped once or
+            dropped, as the reference's densify does); each case once more
+            through the service's consult (ragged_consult_t), whose
+            wrappers pick the form (join_form), and through the one-shot
+            consult (ops.deps_kernels.consult) on the [T, K] index, launches
+            counted: config 4 and the wide row on K1d/K2d in the service,
+            the rest on K1/K2 (the dense form refuses the cases with T % 16
+            != 0, checked), every case on the [T, K] kernels one-shot (K =
+            72 and a misaligned query go to CSR and a forced dense raises,
+            checked); at shape A, config 4 and the wide row the one-shot
+            consult's transpose route (transposes, CSR query, [K, T]
+            kernels by join_form) and its [T, K] route timed in turns, with
+            the transpose route's parts and the [T, K] route in a CUDA
+            graph; the sweep of both forms in
             turns over row widths at config 4's and the wide row's index,
             config 4's rows over fewer slots and rows naming every key of
             16-, 64- and 256-key indexes (the crossovers join_form is set
-            from); device time per launch
+            from), and the one-shot consult's sweep of the CSR route
+            against the [T, K] kernels at the kernel tables' shapes (the
+            layout="tk" rule's); device time per launch
             from a CUDA graph of back-to-back launches between one event
             pair (cold and warm L2), the wrapper's host cost apart, beside
             the plain version, one torch.matmul of the same join and the
@@ -71,8 +84,8 @@ Phases, one JSON line each; any failure exits non-zero:
             outcomes and every resolver stat equal the same backend's run
             on the CPU;
 9. graph    the conflict-graph model: txn_step at T=65,536, K=512,
-            B=256 with a gc step every 8 (K1 launches counted, each K1
-            answer held against its plain version, step ms, peak memory and
+            B=256 with a gc step every 8 (K1 launches counted, on the [T, K]
+            kernel by the rule, each K1 answer held against its plain version, step ms, peak memory and
             the step's floor); a T=4,096 trajectory with padded batches,
             card against CPU bit for bit; insert_batch and txn_step with
             slots T, -1 and -T-1, card against CPU; closure/elide/SCC/Kahn
@@ -112,8 +125,8 @@ Phases, one JSON line each; any failure exits non-zero:
             this phase prints are not the bench's).
 
 Then the card's nvidia-smi line, one ``{"kernels": [...]}`` line (K1, K2,
-K1d, K2d, each with its launches per path and its times at every measured
-shape in both forms) and, last,
+K1d, K2d on [K, T] and K1d, K2d on [T, K], each with its launches per path
+and its times at every measured shape in each form) and, last,
 ``{"ok": true, "device": {...}}``.  Without CUDA, or run from a directory
 that does not hold the port, it exits non-zero and prints no result.
 """
@@ -156,13 +169,25 @@ REPLACES = {
     # Pallas kernel's own shape (a dense query against the whole index)
     "deps_join_dense": TPU_KERNEL,
     "max_conflict_dense": MAX_HALF,
+    # K1d and K2d on the [T, K] index as the reference's kernel reads it
+    # (TMA ring, int8 wgmma): the one-shot consults' and the steps' path
+    "deps_join_dense_tk": TPU_KERNEL,
+    "max_conflict_dense_tk": MAX_HALF,
 }
 SOURCES = {"deps_join": "cassandra_accord_tpu_torch/csrc/consult.cu",
            "max_conflict": "cassandra_accord_tpu_torch/csrc/consult.cu",
            "deps_join_dense": "cassandra_accord_tpu_torch/csrc/dense_join.cu",
            "max_conflict_dense":
-               "cassandra_accord_tpu_torch/csrc/dense_join.cu"}
+               "cassandra_accord_tpu_torch/csrc/dense_join.cu",
+           "deps_join_dense_tk":
+               "cassandra_accord_tpu_torch/csrc/dense_join_tk.cu",
+           "max_conflict_dense_tk":
+               "cassandra_accord_tpu_torch/csrc/dense_join_tk.cu"}
 CSR_KERNELS = ("deps_join", "max_conflict")
+TK_KERNELS = ("deps_join_dense_tk", "max_conflict_dense_tk")
+# the wrappers the recorders hold: the [K, T] ones (a form each) and the
+# [T, K] ones; their plain versions are ``<name>_plain``
+WRAPPERS = ("deps_join", "max_conflict", "deps_join_tk", "max_conflict_tk")
 # BASELINE.md config 4 (range transactions of 1,000 keys): the kernels
 # phase's case whose consult is the dense kernels' path
 CONFIG4 = "config4_T65536_K2048_B64_1024keys"
@@ -170,22 +195,37 @@ FORMS = ("csr", "dense")
 
 
 def kernel_name(base, form) -> str:
-    """The launch counter (and kernels-line entry) of ``base`` in ``form``."""
+    """The launch counter (and kernels-line entry) of wrapper ``base`` in
+    ``form`` (the [T, K] wrappers have one kernel each)."""
+    if base.endswith("_tk"):
+        return base[:-3] + "_dense_tk"
     return f"{base}_dense" if form == "dense" else base
 
 
 def k1_launches(launches) -> int:
-    """K1 launches in either form: what one deps_join wrapper call adds."""
-    return launches["deps_join"] + launches["deps_join_dense"]
+    """K1 launches in any form: what one deps_join or deps_join_tk wrapper
+    call adds."""
+    return (launches["deps_join"] + launches["deps_join_dense"]
+            + launches["deps_join_dense_tk"])
 
 
 def need_csr_only(launches, what) -> None:
-    """Both CSR kernels launched and no dense one: the paths whose shapes
-    join_form keeps on the CSR form."""
+    """Both CSR kernels launched and no dense one: the service's paths,
+    whose shapes join_form keeps on the CSR form."""
     need(all(launches[n] > 0 for n in CSR_KERNELS)
-         and launches["deps_join_dense"] == 0
-         and launches["max_conflict_dense"] == 0,
+         and all(launches[n] == 0 for n in ("deps_join_dense",
+                                            "max_conflict_dense")
+                 + TK_KERNELS),
          f"{what} launched {launches}")
+
+
+def call_shape(name, args):
+    """(B, T, K) of a call of wrapper ``name`` with ``args``."""
+    if name.endswith("_tk"):
+        query = args[5] if name == "deps_join_tk" else args[4]
+        return query.shape[0], args[0].shape[0], args[0].shape[1]
+    offsets = args[5] if name == "deps_join" else args[4]
+    return offsets.numel() - 1, args[0].shape[1], args[0].shape[0]
 
 
 def emit(obj) -> None:
@@ -289,29 +329,45 @@ def host_us(torch, fn, reps: int) -> float:
 
 
 def join_bound(torch, name, inc_T, offsets, cols, packed=False):
-    """(bound_ms, bound_by, bytes, ops) for one K1/K2 call.  Bytes: each
-    input byte the function needs read once (the incidence rows the batch
-    names, the slot lanes and codes, the query) and each output byte
-    written once, over the HBM rate.  Operations: the key overlap the
-    cheaper of two ways, 64-bit ORs of the named rows (nnz·T/8 words) on
-    the CUDA cores or the dense 2·B·K·T product on the int8 tensor cores,
-    plus the per-(b, t) epilogue on the CUDA cores (K1: five lane compares,
-    the witness bit and the ANDs, 8; K2: the masked lex-max step, 6)."""
+    """(bound_ms, bound_by, bytes, ops) for one K1/K2 call over the [K, T]
+    index and a CSR query (see ``_bound``)."""
     k, t = inc_T.shape
     b = offsets.numel() - 1
     nnz = int(offsets[-1])
     c = cols[:nnz].long()
     c = c[(c >= 0) & (c < k)]
-    distinct = int(torch.unique(c).numel())
-    query = 4 * (b + 1) + 4 * nnz
-    if name == "deps_join":
+    return _bound(name, b, t, k, c.numel(), int(torch.unique(c).numel()),
+                  4 * (b + 1) + 4 * nnz, packed)
+
+
+def join_bound_tk(torch, name, inc, query, packed=False):
+    """(bound_ms, bound_by, bytes, ops) for one K1/K2 call over the [T, K]
+    index and the dense [B, K] query (see ``_bound``): the keys the batch
+    names are the query's nonzero columns, and the query is B·K bytes."""
+    t, k = inc.shape
+    b = query.shape[0]
+    nz = query != 0
+    return _bound(name, b, t, k, int(nz.sum()), int(nz.any(0).sum()), b * k,
+                  packed)
+
+
+def _bound(name, b, t, k, nnz, distinct, query, packed):
+    """Bytes: each input byte the function needs read once (the incidence
+    of the keys the batch names, the slot lanes and codes, the query) and
+    each output byte written once, over the HBM rate.  Operations: the key
+    overlap the cheaper of two ways, 64-bit ORs of the named rows (nnz·T/8
+    words) on the CUDA cores or the dense 2·B·K·T product on the int8
+    tensor cores, plus the per-(b, t) epilogue on the CUDA cores (K1: five
+    lane compares, the witness bit and the ANDs, 8; K2: the masked lex-max
+    step, 6)."""
+    if name.startswith("deps_join"):
         nbytes = distinct * t + t * (20 + 3) + query + 21 * b \
             + (b * t // 8 if packed else b * t)
         epilogue = 8 * b * t
     else:
         nbytes = distinct * t + t * (40 + 1) + query + 20 * b
         epilogue = 6 * b * t
-    or_words = c.numel() * t // 8
+    or_words = nnz * t // 8
     dense = 2 * b * k * t
     if or_words / CUDA_CORE_OPS_PER_S <= dense / INT8_TENSOR_OPS_PER_S:
         t_overlap, overlap_ops = or_words / CUDA_CORE_OPS_PER_S, or_words
@@ -414,46 +470,47 @@ class KernelRecorder:
         self.torch = torch
         self.k = kmod
         self.every = every
-        self.real = {"deps_join": kmod.deps_join,
-                     "max_conflict": kmod.max_conflict}
-        self.calls = {"deps_join": 0, "max_conflict": 0}
+        self.real = {n: getattr(kmod, n) for n in WRAPPERS}
+        self.calls = {n: 0 for n in WRAPPERS}
         self.largest = {}
         self.checked = 0
         self.check_s = 0.0
+
+    def k1_calls(self) -> int:
+        return self.calls["deps_join"] + self.calls["deps_join_tk"]
 
     def _check(self, name, args, kwargs, got):
         t0 = time.perf_counter()
         kwargs = {k: v for k, v in kwargs.items() if k != "form"}
         want = getattr(self.k, f"{name}_plain")(*args, **kwargs)
+        b, t, k = call_shape(name, args)
         need(self.torch.equal(got, want),
-             f"{name} differs from its plain version at "
-             f"T={args[0].shape[1]} K={args[0].shape[0]}")
+             f"{name} differs from its plain version at B={b} T={t} K={k}")
         self.checked += 1
         self.check_s += time.perf_counter() - t0
 
     def _wrap(self, name):
         real = self.real[name]
-        rows_arg = 5 if name == "deps_join" else 4
 
         def call(*args, **kwargs):
             got = real(*args, **kwargs)
             if self.every and self.calls[name] % self.every == 0:
                 self._check(name, args, kwargs, got)
             self.calls[name] += 1
-            size = (args[rows_arg].numel() - 1) * args[0].shape[1]
-            if size >= self.largest.get(name, (-1,))[0]:
-                self.largest[name] = (size, args, kwargs)
+            b, t, _k = call_shape(name, args)
+            if b * t >= self.largest.get(name, (-1,))[0]:
+                self.largest[name] = (b * t, args, kwargs)
             return got
         return call
 
     def __enter__(self):
-        self.k.deps_join = self._wrap("deps_join")
-        self.k.max_conflict = self._wrap("max_conflict")
+        for n in WRAPPERS:
+            setattr(self.k, n, self._wrap(n))
         return self
 
     def __exit__(self, *exc):
-        self.k.deps_join = self.real["deps_join"]
-        self.k.max_conflict = self.real["max_conflict"]
+        for n in WRAPPERS:
+            setattr(self.k, n, self.real[n])
 
 
 def _keep_largest(ctx, path, chk) -> None:
@@ -509,19 +566,25 @@ def phase_build(ctx):
 
 
 def _kernel_case(ctx, label, t, k, b, keys_per_txn, iters, packed=(False, True),
-                 wide=0):
+                 wide=0, split=False):
     """K1 (unpacked, and bit-packed where ``packed`` says) and K2 on one
-    synthetic index and query batch, each in both forms (CSR, dense); then
-    the same batch through the consult the device tier's service runs
-    (``device_service.kernel.ragged_consult_t``, the CSR batch as given),
-    whose wrappers pick the form (join_form), with the launch counts zeroed
-    just before and read just after; with ``wide`` the first query row
-    takes that many random columns, duplicates included."""
+    synthetic index and query batch, each in both forms (CSR, dense) over
+    the [K, T] index and on the [T, K] index as it lies (K1d/K2d _tk, also
+    equal to the [K, T] answers); then the same batch through the consult
+    the device tier's service runs (``device_service.kernel.
+    ragged_consult_t``, the CSR batch as given), whose wrappers pick the
+    form (join_form), and through the one-shot consult
+    (``ops.deps_kernels.consult``, the [T, K] index and the dense query),
+    each with the launch counts zeroed just before and read just after;
+    with ``wide`` the first query row takes that many random columns,
+    duplicates included; with ``split`` the one-shot consult's transpose
+    route and its [T, K] route are timed in turns (``_oneshot_split``)."""
     import numpy as np
     torch = ctx["torch"]
     from cassandra_accord_tpu_torch.device_service.kernel import \
         ragged_consult_t
     from cassandra_accord_tpu_torch.ops import _kernels as K
+    from cassandra_accord_tpu_torch.ops import deps_kernels as dk
     dev = torch.device(ctx["dev"])
     rng = np.random.default_rng(7)
     key_inc, live, lanes, ts, kind, status, active = make_index(
@@ -570,7 +633,111 @@ def _kernel_case(ctx, label, t, k, b, keys_per_txn, iters, packed=(False, True),
                       for n in K.LAUNCHES},
          f"[{label}] auto ({form}) launched {launches}")
     ctx.setdefault("auto_launches", {})[label] = launches
+
+    # the [T, K] entries on the index as the one-shot callers hold it
+    q = np.zeros((b, k), dtype=np.int8)
+    for i, r in enumerate(rows):
+        q[i, r] = 1
+    tk = dict(live=up(live), key=up(key_inc), q=up(q))
+    tj = (tk["live"].view(torch.uint8), g["txn_id"], g["kind"], g["status"],
+          g["active"], tk["q"].view(torch.uint8), g["before"], g["qkind"])
+    tm = (tk["key"].view(torch.uint8), g["ts"], g["txn_id"], g["active"],
+          tk["q"].view(torch.uint8))
+    need(torch.equal(K.deps_join_tk_plain(*tj), deps)
+         and torch.equal(K.max_conflict_tk_plain(*tm), cmax),
+         f"[{label}] the [T, K] plain versions differ from the [K, T] path")
+    for pk in packed:
+        out.append(measure(ctx, "deps_join_tk",
+                           f"{label}{'_packed' if pk else ''}", tj,
+                           {"packed": pk}, iters))
+    out.append(measure(ctx, "max_conflict_tk", label, tm, {}, iters))
+    oneshot = (tk["live"], tk["key"], g["ts"], g["txn_id"], g["kind"],
+               g["status"], g["active"], tk["q"], g["before"], g["qkind"])
+    K.reset_launches()                        # just before the call
+    d1, m1 = dk.consult(*oneshot)
+    sync(ctx)
+    launches = dict(K.LAUNCHES)               # just after it
+    need(torch.equal(d1, deps) and torch.equal(m1, cmax),
+         f"[{label}] the one-shot consult differs from the service's")
+    want = ({n: int(n in TK_KERNELS) for n in K.LAUNCHES}
+            if K.join_form(b, t, k, layout="tk") == "dense" else None)
+    need(want is None or launches == want,
+         f"[{label}] the one-shot consult launched {launches}")
+    ctx.setdefault("oneshot_launches", {})[label] = launches
+    if split:
+        ctx.setdefault("oneshot_split", {})[label] = _oneshot_split(
+            ctx, oneshot, (d1, m1))
     return out
+
+
+def transpose_consult(*args, packed=False):
+    """The one-shot consult's transpose route, the one a [T, K] caller
+    takes when the [T, K] kernels refuse its shape: both incidences
+    transposed to [K, T], the query to CSR (its size read back), then K1
+    and K2 in the form join_form picks."""
+    from cassandra_accord_tpu_torch.ops import _kernels as K
+    from cassandra_accord_tpu_torch.ops import deps_kernels as dk
+    live, key, ts, txn_id, kind, status, active, q, before, qkind = args
+    offsets, cols = dk.query_csr(q)
+    deps = K.deps_join(dk.incidence_T(live), txn_id, kind, status, active,
+                       offsets, cols, before, qkind, packed=packed)
+    return deps, K.max_conflict(dk.incidence_T(key), ts, txn_id, active,
+                                offsets, cols)
+
+
+def _oneshot_split(ctx, args, want):
+    """The one-shot consult (``consult_packed``) by the transpose route and
+    by the [T, K] route, in turns (transpose, tk, tk, transpose), ms per
+    call from events around calls after an L2 flush each (the transpose
+    route reads the query's size back, so neither is captured; the events
+    then take the host's gaps in), and the transpose route in its parts:
+    ``incidence_T`` of both incidences, ``query_csr``, K1 and K2 on the
+    prepared inputs; and this route captured in a CUDA graph (it reads
+    nothing back), device ms per call.  Both routes' answers are held
+    against ``want``."""
+    torch = ctx["torch"]
+    from cassandra_accord_tpu_torch.ops import _kernels as K
+    from cassandra_accord_tpu_torch.ops import deps_kernels as dk
+    flush, reps = ctx["flush"], 5
+    packed = (K.pack_bits(want[0]), want[1])
+    routes = {"transpose": lambda: transpose_consult(*args, packed=True),
+              "tk": lambda: dk.consult_packed(*args)}
+    for name, fn in routes.items():
+        got = fn()
+        sync(ctx)
+        need(all(torch.equal(a, w) for a, w in zip(got, packed)),
+             f"one-shot consult ({name} route) differs")
+    ms = {"transpose": [], "tk": []}
+    for name in ("transpose", "tk", "tk", "transpose"):
+        ms[name].append(eager_ms(torch, routes[name], reps, flush))
+    live, key, ts, txn_id, kind, status, active, q, before, qkind = args
+    offsets, cols = dk.query_csr(q)
+    live_T, key_T = dk.incidence_T(live), dk.incidence_T(key)
+    parts = {
+        "incidence_T_x2": eager_ms(torch, lambda: (dk.incidence_T(live),
+                                                   dk.incidence_T(key)),
+                                   reps, flush),
+        "query_csr": eager_ms(torch, lambda: dk.query_csr(q), reps, flush),
+        "kernels": device_ms(torch, lambda: (
+            K.deps_join(live_T, txn_id, kind, status, active, offsets, cols,
+                        before, qkind, packed=True),
+            K.max_conflict(key_T, ts, txn_id, active, offsets, cols)),
+            reps, flush),
+        "form": K.join_form(q.shape[0], live.shape[0], live.shape[1],
+                            cols.numel())}
+    last = [None]
+
+    def graphed():
+        last[0] = dk.consult_packed(*args)
+
+    def check(replay):
+        sync(ctx)
+        need(all(torch.equal(a, w) for a, w in zip(last[0], packed)),
+             "one-shot consult (tk route) differs after a graph replay")
+    return {"transpose_ms": ms["transpose"], "tk_ms": ms["tk"],
+            "transpose_parts_ms": parts,
+            "tk_graph_ms": device_ms(torch, graphed, reps, flush, check),
+            "tk_host_us": host_us(torch, routes["tk"], reps)}
 
 
 def _dense_refused(ctx, label, jargs, margs):
@@ -589,26 +756,38 @@ def _dense_refused(ctx, label, jargs, margs):
 
 def measure(ctx, name, label, args, kwargs, iters, path="synthetic",
             form="auto"):
-    """One kernel (``name``: deps_join or max_conflict) in one form at one
-    shape: exact check against the plain version (the eager call's answer,
-    and the last graph replay's of each timing, also after its output was
-    overwritten and the graph replayed once more), then kernel (cold and
-    warm L2), plain and library times, the wrapper's host cost and the
-    bound.  ``path`` says where the shape came from; ``form`` "auto" is the
-    form join_form picks for it, and the row is named by the form."""
+    """One kernel (``name``: the wrapper deps_join or max_conflict, in one
+    form, or deps_join_tk or max_conflict_tk) at one shape: exact check
+    against the plain version (the eager call's answer, and the last graph
+    replay's of each timing, also after its output was overwritten and the
+    graph replayed once more), then kernel (cold and warm L2), plain and
+    library times, the wrapper's host cost and the bound.  ``path`` says
+    where the shape came from; ``form`` "auto" is the form join_form picks
+    for it, and the row is named by the kernel."""
     torch = ctx["torch"]
     from cassandra_accord_tpu_torch.ops import _kernels as K
     kwargs = {k: v for k, v in kwargs.items() if k != "form"}
-    inc_T = args[0]
-    offsets = args[5] if name == "deps_join" else args[4]
-    cols = args[6] if name == "deps_join" else args[5]
-    if form == "auto":
-        form = K.join_form(offsets.numel() - 1, inc_T.shape[1],
-                           inc_T.shape[0], cols.numel())
     real = ctx["real"][name]
+    b, t, k = call_shape(name, args)
+    packed = kwargs.get("packed", False)
+    if name.endswith("_tk"):
+        inc, query = args[0], args[5 if name == "deps_join_tk" else 4]
+        kern = real
+        qf, incf = query.float(), inc.float().t()
+        bound = join_bound_tk(torch, name, inc, query, packed=packed)
+        nnz = int((query != 0).sum())
+    else:
+        inc_T = args[0]
+        offsets = args[5] if name == "deps_join" else args[4]
+        cols = args[6] if name == "deps_join" else args[5]
+        if form == "auto":
+            form = K.join_form(b, t, k, cols.numel())
 
-    def kern(*a, **kw):
-        return real(*a, form=form, **kw)
+        def kern(*a, **kw):
+            return real(*a, form=form, **kw)
+        qf, incf = K.dense_query(offsets, cols, k).float(), inc_T.float()
+        bound = join_bound(torch, name, inc_T, offsets, cols, packed=packed)
+        nnz = int(offsets[-1])
     plain = getattr(K, f"{name}_plain")
     got = kern(*args, **kwargs)
     want = plain(*args, **kwargs)
@@ -642,16 +821,12 @@ def measure(ctx, name, label, args, kwargs, iters, path="synthetic",
     wrapper_us = host_us(torch, call, iters)
     plain_ms = eager_ms(torch, lambda: plain(*args, **kwargs),
                         max(3, iters // 4), flush)
-    qf = K.dense_query(offsets, cols, inc_T.shape[0]).float()
-    incf = inc_T.float()
     library_ms = device_ms(torch, lambda: torch.matmul(qf, incf),
                            max(3, iters // 4), flush)
     del qf, incf
-    bound_ms, bound_by, nbytes, ops = join_bound(
-        torch, name, inc_T, offsets, cols, packed=kwargs.get("packed", False))
+    bound_ms, bound_by, nbytes, ops = bound
     row = {"name": kernel_name(name, form), "shape": label, "path": path,
-           "B": offsets.numel() - 1, "T": inc_T.shape[1], "K": inc_T.shape[0],
-           "nnz": int(offsets[-1]), "packed": bool(kwargs.get("packed", False)),
+           "B": b, "T": t, "K": k, "nnz": nnz, "packed": bool(packed),
            "max_abs_err": err, "ms": ms, "warm_ms": warm_ms,
            "method_floor_ms": floor_ms,
            "wrapper_host_us": wrapper_us, "plain_ms": plain_ms,
@@ -663,8 +838,9 @@ def measure(ctx, name, label, args, kwargs, iters, path="synthetic",
 
 def phase_kernels(ctx):
     rows = []
-    rows += _kernel_case(ctx, "T65536_K512_B256_2keys", 65536, 512, 256, 2, 20)
-    rows += _kernel_case(ctx, CONFIG4, 65536, 2048, 64, 1024, 10)
+    rows += _kernel_case(ctx, "T65536_K512_B256_2keys", 65536, 512, 256, 2, 20,
+                         split=True)
+    rows += _kernel_case(ctx, CONFIG4, 65536, 2048, 64, 1024, 10, split=True)
     # odd T (the CSR form's byte loads, no packing; the dense form refuses
     # T % 16 != 0) at a small shape
     rows += _kernel_case(ctx, "T1003_K64_B13_2keys", 1003, 64, 13, 2, 20,
@@ -677,15 +853,139 @@ def phase_kernels(ctx):
                          packed=(False,))
     # a row of 5,000 columns (duplicates), wider than a block's CSR stage
     rows += _kernel_case(ctx, "wide_T65536_K512_B9_5000cols", 65536, 512, 9,
-                         2, 5, packed=(False,), wide=5000)
+                         2, 5, packed=(False,), wide=5000, split=True)
+    # a K tail the [T, K] kernels take (80) and one they refuse (72)
+    rows += _kernel_case(ctx, "T4096_K80_B33_2keys", 4096, 80, 33, 2, 20)
     keys = ("name", "shape", "max_abs_err", "ms", "warm_ms",
             "method_floor_ms", "wrapper_host_us", "plain_ms", "library_ms",
             "bound_ms", "bound_by")
     return {"negative_columns": _kernel_columns(ctx),
+            "tk_refused": _tk_refused(ctx),
             "cases": [dict({k: r[k] for k in keys},
                            bound_us=r["bound_ms"] * 1e3) for r in rows],
             "auto_launches": ctx["auto_launches"],
-            "sweep": _kernel_sweep(ctx)}
+            "oneshot_launches": ctx["oneshot_launches"],
+            "oneshot_split": ctx["oneshot_split"],
+            "sweep": _kernel_sweep(ctx),
+            "consult_sweep": _consult_sweep(ctx)}
+
+
+def _tk_refused(ctx):
+    """K = 72 (not a multiple of 16) and a misaligned query: the [T, K]
+    kernels refuse both, so a forced ``form="dense"`` raises and launches
+    nothing, and ``form="auto"`` takes the CSR route (transposes, CSR
+    query, the [K, T] wrappers), equal to the plain versions."""
+    import numpy as np
+    torch = ctx["torch"]
+    from cassandra_accord_tpu_torch.ops import _kernels as K
+    from cassandra_accord_tpu_torch.ops import deps_kernels as dk
+    rng = np.random.default_rng(31)
+    out = {}
+    for label, t, k, b, offset in (("K72", 1024, 72, 9, 0),
+                                   ("misaligned_query", 1024, 64, 9, 1)):
+        key_inc, live, lanes, ts, kind, status, active = make_index(
+            np, rng, t, k, 2)
+        rows, before, qkind = make_queries(np, rng, b, k, t, 2)
+        q = np.zeros((b * k + offset,), dtype=np.int8)
+        for i, r in enumerate(rows):
+            q[offset + i * k + np.asarray(r)] = 1
+
+        def up(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(ctx["dev"])
+        qd = up(q)[offset:].view(b, k)          # data_ptr % 16 == offset
+        args = (up(live), up(key_inc), up(ts), up(lanes), up(kind),
+                up(status), up(active), qd, up(before), up(qkind))
+        before_l = dict(K.LAUNCHES)
+        try:
+            dk.consult(*args, form="dense")
+        except ValueError:
+            pass
+        else:
+            need(False, f"[{label}] a forced dense consult did not raise")
+        need(K.LAUNCHES == before_l, f"[{label}] a refused call launched")
+        K.reset_launches()
+        got = dk.consult(*args)
+        sync(ctx)
+        launches = dict(K.LAUNCHES)
+        need(not any(launches[n] for n in TK_KERNELS)
+             and k1_launches(launches) == 1,
+             f"[{label}] auto launched {launches}")
+        cpu = [a.cpu() for a in args]
+        want = dk.consult(*cpu)
+        need(all(torch.equal(a.cpu(), w) for a, w in zip(got, want)),
+             f"[{label}] the CSR route differs from the plain versions")
+        out[label] = launches
+    return out
+
+
+# The rule's sweep for [T, K] callers (PERF.md §6 sets join_form's
+# layout="tk" rule from it): the one-shot consult (``ops.deps_kernels.
+# consult``, both halves) at the shapes of PERF.md's kernel tables, by the
+# CSR route (the index transposed, the query to CSR with its size read
+# back, the [K, T] CSR kernels) and by the [T, K] kernels, in turns (CSR,
+# dense, dense, CSR), ms per call from events around calls after an L2
+# flush each.  (label, B, T, K, keys per index row, keys per query row,
+# wide row's columns)
+CONSULT_SWEEP = dict(
+    shapes=(("burn_largest", 8, 256, 16, 2, 2, 0),
+            ("cli_largest", 8, 128, 16, 1, 1, 0),
+            ("odd_T", 13, 1003, 64, 2, 2, 0),
+            ("two_tiles", 13, 2049, 64, 2, 2, 0),
+            ("bench_phase_largest", 256, 4096, 512, 2, 2, 0),
+            ("mesh_rank_step", 256, 16384, 512, 2, 2, 0),
+            ("shape_A", 256, 65536, 512, 2, 2, 0),
+            ("wide_row", 9, 65536, 512, 2, 2, 5000),
+            ("replay_largest", 256, 65536, 1024, 2, 8, 0),
+            ("wide_replay_largest", 256, 4096, 8192, 2, 2, 0),
+            ("config4", 64, 65536, 2048, 1024, 1024, 0)),
+    reps=5)
+
+
+def _consult_sweep(ctx):
+    import numpy as np
+    torch = ctx["torch"]
+    from cassandra_accord_tpu_torch.ops import _kernels as K
+    from cassandra_accord_tpu_torch.ops import deps_kernels as dk
+    rng = np.random.default_rng(37)
+    out = []
+    for label, b, t, k, per_txn, per_row, wide in CONSULT_SWEEP["shapes"]:
+        if per_txn > 8:                      # config 4's index: 50% dense
+            key_inc = (rng.random((t, k)) < 0.5).astype(np.int8)
+            _k, _l, lanes, ts, kind, status, active = make_index(
+                np, rng, t, 64, 2)
+        else:
+            key_inc, _l, lanes, ts, kind, status, active = make_index(
+                np, rng, t, k, per_txn)
+        rows, before, qkind = make_queries(np, rng, b, k, t, min(per_row, 2))
+        if per_row > 2:
+            rows = [sorted(int(c) for c in rng.choice(k, per_row, replace=False))
+                    for _ in range(b)]
+        if wide:
+            rows[0] = sorted(int(c) for c in rng.integers(0, k, wide))
+        q = np.zeros((b, k), dtype=np.int8)
+        for i, r in enumerate(rows):
+            q[i, r] = 1
+
+        def up(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(ctx["dev"])
+        args = (up(key_inc), up(key_inc), up(ts), up(lanes), up(kind),
+                up(status), up(active), up(q), up(before), up(qkind))
+        want = dk.consult(*args, form="csr")
+        got = dk.consult(*args, form="dense")
+        sync(ctx)
+        need(all(torch.equal(a, w) for a, w in zip(got, want)),
+             f"consult sweep [{label}]: the forms differ")
+        ms = {"csr": [], "dense": []}
+        for form in ("csr", "dense", "dense", "csr"):
+            ms[form].append(eager_ms(
+                torch, lambda f=form: dk.consult(*args, form=f),
+                CONSULT_SWEEP["reps"], ctx["flush"]))
+        out.append({"shape": label, "B": b, "T": t, "K": k,
+                    "rule": K.join_form(b, t, k, layout="tk"),
+                    "csr_ms": ms["csr"], "dense_ms": ms["dense"],
+                    "faster": min(ms, key=lambda f: min(ms[f]))})
+        del args
+    return out
 
 
 # The crossover sweep of the two forms (PERF.md §6 sets join_form's
@@ -910,7 +1210,7 @@ def phase_service(ctx):
     need(answered == windows * b, f"answered {answered}")
     need(launches["deps_join"] > 0 and launches["max_conflict"] > 0,
          f"service launched no kernel: {launches}")
-    need(chk.calls["deps_join"] == k1_launches(launches), "uncounted launch")
+    need(chk.k1_calls() == k1_launches(launches), "uncounted launch")
     checked = chk.checked
     st = svc.stats()
     return {"T": t, "K": k, "B": b, "windows": windows, "answered": answered,
@@ -1177,7 +1477,7 @@ def phase_cli(ctx):
             consults = card["metrics"].get("resolver.device_consults", 0)
             need(consults > 0, f"run {label}: no device consult")
             need_csr_only(launches, f"run {label}: the CLI run")
-            need(chk.calls["deps_join"] == k1_launches(launches),
+            need(chk.k1_calls() == k1_launches(launches),
                  f"run {label}: uncounted launch")
             checked = chk.checked
             need(checked > 0, f"run {label}: no kernel call checked")
@@ -1403,7 +1703,7 @@ def phase_maelstrom(ctx):
         need(card["ok"] == MAELSTROM["ops"],
              f"maelstrom {label}: {card['ok']} of {MAELSTROM['ops']} ok")
         need_csr_only(launches, f"maelstrom {label}")
-        need(chk.calls["deps_join"] == k1_launches(launches),
+        need(chk.k1_calls() == k1_launches(launches),
              f"maelstrom {label}: uncounted launch")
         need(consults > 0, f"maelstrom {label}: no device consult")
         _keep_largest(ctx, "maelstrom", chk)
@@ -1541,7 +1841,7 @@ def phase_verify(ctx):
     need(card["resolver_device_consults"] > 0,
          "verify burn: no device consult")
     need_csr_only(launches, "verify burn")
-    need(chk.calls["deps_join"] == k1_launches(launches),
+    need(chk.k1_calls() == k1_launches(launches),
          "verify burn: uncounted launch")
     need(chk.checked > 0, "verify burn: no kernel call checked")
     ctx["verify_launches"] = launches
@@ -1628,39 +1928,65 @@ def _watermark(np, hlc):
 
 
 class JoinCheck:
-    """Installed over ``_kernels.deps_join`` while the graph path runs: the
-    real wrapper does every launch (and its count); each call's inputs are
-    copied, because the step then writes the state in place, and
-    ``verify`` holds each answer against the plain version exactly."""
+    """Installed over ``_kernels.deps_join`` and ``deps_join_tk`` while the
+    graph path runs: the real wrappers do every launch (and its count);
+    each call's inputs are copied, because the step then writes the state
+    in place, and ``verify`` holds each answer against the plain version
+    exactly.  ``last``: (wrapper, args, kwargs) of the last call checked."""
+
+    NAMES = ("deps_join", "deps_join_tk")
 
     def __init__(self, torch, kmod):
         self.torch, self.k = torch, kmod
-        self.real = kmod.deps_join
+        self.real = {n: getattr(kmod, n) for n in self.NAMES}
         self.pending, self.checked, self.last = [], 0, None
 
-    def call(self, *args, **kwargs):
-        got = self.real(*args, **kwargs)
-        self.pending.append(
-            (tuple(a.clone() if isinstance(a, self.torch.Tensor) else a
-                   for a in args), kwargs, got))
-        return got
+    def _wrap(self, name):
+        def call(*args, **kwargs):
+            got = self.real[name](*args, **kwargs)
+            self.pending.append(
+                (name, tuple(a.clone() if isinstance(a, self.torch.Tensor)
+                             else a for a in args), kwargs, got))
+            return got
+        return call
 
     def verify(self):
-        for args, kwargs, got in self.pending:
-            want = self.k.deps_join_plain(
+        for name, args, kwargs, got in self.pending:
+            want = getattr(self.k, f"{name}_plain")(
                 *args, **{k: v for k, v in kwargs.items() if k != "form"})
             need(self.torch.equal(got, want),
-                 "deps_join differs from its plain version on the graph path")
+                 f"{name} differs from its plain version on the graph path")
             self.checked += 1
-            self.last = (args, kwargs)
+            self.last = (name, args, kwargs)
         self.pending = []
 
     def __enter__(self):
-        self.k.deps_join = self.call
+        for n in self.NAMES:
+            setattr(self.k, n, self._wrap(n))
         return self
 
     def __exit__(self, *exc):
-        self.k.deps_join = self.real
+        for n in self.NAMES:
+            setattr(self.k, n, self.real[n])
+
+
+def _wrapper_calls(torch, fn, args):
+    """[(wrapper, args, kwargs)]: the kernel wrapper calls ``fn(*args)``
+    makes (its route by the rule), for timing at the path's own shapes."""
+    from cassandra_accord_tpu_torch.ops import _kernels as K
+    with KernelRecorder(torch, K, every=0) as chk:
+        fn(*args)
+    return [(name, a, kw) for name, (_s, a, kw) in sorted(chk.largest.items())]
+
+
+def _join_call(torch, args):
+    from cassandra_accord_tpu_torch.ops import deps_kernels as dk
+    return _wrapper_calls(torch, dk.overlap_join, args)
+
+
+def _consult_calls(torch, args):
+    from cassandra_accord_tpu_torch.ops import deps_kernels as dk
+    return _wrapper_calls(torch, dk.consult, args)
 
 
 def _device_edges(torch, adj, rows_per_chunk):
@@ -2216,15 +2542,19 @@ def phase_mesh(ctx):
     applied_total = int(sum(a.sum() for _, a in want))
     need(applied_total > 0, "the mesh steps applied nothing")
     rows = MESH["T"] // n
-    ctx["mesh_join"] = (
-        (dk.incidence_T(torch.from_numpy(fields["key_inc"][:rows]).to(dev)),
-         torch.from_numpy(fields["txn_id"][:rows]).to(dev),
-         torch.from_numpy(fields["kind"][:rows]).to(dev),
-         torch.from_numpy(fields["status"][:rows]).to(dev),
-         torch.from_numpy(fields["active"][:rows]).to(dev),
-         *dk.query_csr(torch.from_numpy(batches[0]["key_inc"]).to(dev)),
-         torch.from_numpy(batches[0]["txn_id"]).to(dev),
-         torch.from_numpy(batches[0]["kind"]).to(dev)), {})
+
+    def on_card(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    # the join a rank makes in the sharded step (its [T/n, K] rows, the
+    # first batch), in the form join_form picks for it
+    ctx["mesh_join"] = _join_call(
+        torch, (on_card(fields["key_inc"][:rows]),
+                on_card(fields["txn_id"][:rows]),
+                on_card(fields["kind"][:rows]),
+                on_card(fields["status"][:rows]),
+                on_card(fields["active"][:rows]),
+                on_card(batches[0]["key_inc"]), on_card(batches[0]["txn_id"]),
+                on_card(batches[0]["kind"])))
 
     # ---- the store consult: each store on one card, and across stores ----
     lanes = []
@@ -2244,11 +2574,7 @@ def phase_mesh(ctx):
              "cross-store max differs from host_lex_max")
     s0 = tuple(torch.from_numpy(np.ascontiguousarray(x[0])).to(dev)
                for x in stores)
-    offsets, cols = dk.query_csr(s0[7])
-    ctx["mesh_consult"] = (
-        (dk.incidence_T(s0[0]), s0[3], s0[4], s0[5], s0[6], offsets, cols,
-         s0[8], s0[9]),
-        (dk.incidence_T(s0[1]), s0[2], s0[3], s0[6], offsets, cols))
+    ctx["mesh_consult"] = _consult_calls(torch, s0)
 
     # ---- closure and frontier against one card ---------------------------
     reach = np.concatenate([r.value[2]["reach"] for r in gloo])
@@ -2281,8 +2607,11 @@ def phase_mesh(ctx):
     for lw in dry["launches"]:
         for name, v in lw.items():
             launches[name] += v
-    need(all(launches[n] > 0 for n in CSR_KERNELS),
-         f"the mesh path did not launch every kernel: {launches}")
+    # the ranks' steps and store consults take the [T, K] kernels by the
+    # rule; the dry run's consults of live stores take what it gives them
+    need(launches["deps_join_dense_tk"] > 0
+         and launches["max_conflict_dense_tk"] > 0,
+         f"the mesh path did not launch the [T, K] kernels: {launches}")
     ctx["mesh_launches"] = launches
     seconds = time.perf_counter() - t0
     need(seconds <= MESH["budget_s"],
@@ -2684,7 +3013,7 @@ def phase_bench(ctx):
         launches = dict(K.LAUNCHES)          # just after them
     need(all(launches[n] > 0 for n in CSR_KERNELS),
          f"bench launched {launches}")
-    need(chk.calls["deps_join"] == k1_launches(launches),
+    need(chk.k1_calls() == k1_launches(launches),
          "bench: uncounted launch")
     need(chk.checked > 0, "bench: no kernel call checked")
     ctx["bench_launches"] = launches
@@ -2705,15 +3034,17 @@ ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
 
 def kernels_line(ctx):
     """One entry per kernel and form (K1, K2 in the CSR form; K1d, K2d in
-    the dense form): the main path's (the burn's) launch count and the
-    numbers at the largest call it made (the dense kernels: at config 4,
-    their own path: the service's consult of config 4's batch, which
-    join_form sends to them), and the other paths' launch counts: graph,
+    the dense form on [K, T] and on [T, K]): the main path's (the burn's;
+    for the [T, K] kernels the one-shot consult of config 4's batch)
+    launch count and the numbers at the largest call it made (the dense
+    kernels: at config 4, their own path: the service's or the one-shot
+    consult of config 4's batch, which join_form sends to them), and the
+    other paths' launch counts: graph,
     mesh (summed over its ranks), cli and maelstrom (summed over their runs
     on the card's backend), the Maelstrom binary's (as its process reported
     them), verify, bench, the replays' per recording, target and tier, and
-    the kernels phase's consult of each case (``config4_launches``: config
-    4's); every other measured shape (the full-size synthetic ones in both
+    the kernels phase's service and one-shot consults of each case
+    (``config4_launches``: config 4's service consult); every other measured shape (the full-size synthetic ones in both
     forms, the paths' largest calls in both forms) under ``shapes``, each
     with ``main_path_launches``: the burn's count of its kernel for the
     burn's call, else 0."""
@@ -2734,25 +3065,25 @@ def kernels_line(ctx):
                 ctx.get("largest", {}).get(path, {}).items()):
             calls.append((name, f"{path}_largest", args, kwargs, path))
     if ctx.get("graph_join") is not None:
-        args, kwargs = ctx["graph_join"]
-        calls.append(("deps_join", "graph_step_T{T}_K{K}_B{B}".format(**GRAPH),
+        name, args, kwargs = ctx["graph_join"]
+        calls.append((name, "graph_step_T{T}_K{K}_B{B}".format(**GRAPH),
                       args, kwargs, "graph"))
     if ctx.get("mesh_join") is not None:
         # a rank's join in the sharded step (rank 0, first batch), and
         # store 0's consult in the store-sharded consult
-        args, kwargs = ctx["mesh_join"]
         label = "mesh_step_rank_T{}_K{K}_B{B}".format(
             MESH["T"] // MESH["ranks"], **MESH)
-        calls.append(("deps_join", label, args, kwargs, "mesh"))
-        jargs, margs = ctx["mesh_consult"]
+        for name, args, kwargs in ctx["mesh_join"]:
+            calls.append((name, label, args, kwargs, "mesh"))
         label = "mesh_store_T{T}_K{K}_B{B}".format(**MESH)
-        calls.append(("deps_join", label, jargs, {}, "mesh"))
-        calls.append(("max_conflict", label, margs, {}, "mesh"))
-    # each path's largest call in both forms: the one join_form picks
-    # (which launched on the path) and the other
+        for name, args, kwargs in ctx["mesh_consult"]:
+            calls.append((name, label, args, kwargs, "mesh"))
+    # each path's largest call: a [K, T] one in both forms (the one
+    # join_form picks, which launched on the path, and the other), a
+    # [T, K] one on its kernel
     for name, label, args, kwargs, path in calls:
-        for form in FORMS:
-            if form == "csr" or args[0].shape[1] % 16 == 0:
+        for form in (("auto",) if name.endswith("_tk") else FORMS):
+            if form != "dense" or args[0].shape[1] % 16 == 0:
                 measure(ctx, name, label, args, kwargs, 20, path, form=form)
     burn = ctx.get("burn_launches", {})
     entries = []
@@ -2766,9 +3097,15 @@ def kernels_line(ctx):
             head = next((r for r in rows if r["path"] == "burn"), rows[0])
         else:
             head = next((r for r in rows if r["shape"] == CONFIG4), rows[0])
+        # the [T, K] kernels' own path: the one-shot consult of config 4's
+        # batch (launches zeroed before it, read after); the others': the burn
+        oneshot = ctx.get("oneshot_launches", {})
+        own = oneshot.get(CONFIG4, {}) if name in TK_KERNELS else burn
         e = {"name": name, "route": "cuda", "source": SOURCES[name],
              "replaces": REPLACES[name],
-             "launches": burn.get(name, 0),
+             "launches": own.get(name, 0),
+             "launches_path": ("one-shot consult, config 4"
+                               if name in TK_KERNELS else "burn"),
              "replay_launches": ctx.get("replay_launches", {}).get(name, {}),
              "graph_launches": ctx.get("graph_launches", {}).get(name, 0),
              "mesh_launches": ctx.get("mesh_launches", {}).get(name, 0),
@@ -2783,7 +3120,9 @@ def kernels_line(ctx):
                  ctx.get("auto_launches", {}).get(CONFIG4, {}).get(name, 0),
              "kernels_auto_launches":
                  {case: v.get(name, 0)
-                  for case, v in ctx.get("auto_launches", {}).items()}}
+                  for case, v in ctx.get("auto_launches", {}).items()},
+             "kernels_oneshot_launches":
+                 {case: v.get(name, 0) for case, v in oneshot.items()}}
         e.update({k: head[k] for k in ROW_KEYS})
         e["shapes"] = [dict({k: r[k] for k in ROW_KEYS},
                             main_path_launches=burn.get(name, 0)
@@ -2791,6 +3130,13 @@ def kernels_line(ctx):
                        for r in rows if r is not head]
         entries.append(e)
     return {"kernels": entries}
+
+
+def new_ctx(torch, kmod, dev="cuda"):
+    """The phases' shared state; ``real``: the kernel wrappers as the port
+    defines them (the recorders wrap the module's attributes)."""
+    return {"torch": torch, "rows": [], "dev": dev, "floors": {},
+            "real": {n: getattr(kmod, n) for n in WRAPPERS}}
 
 
 def main(argv=None) -> int:
@@ -2821,9 +3167,7 @@ def main(argv=None) -> int:
         return 3
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    ctx = {"torch": torch, "rows": [], "dev": "cuda", "floors": {},
-           "real": {"deps_join": _kernels.deps_join,
-                    "max_conflict": _kernels.max_conflict}}
+    ctx = new_ctx(torch, _kernels)
     fns = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
            "service": phase_service, "burn": phase_burn, "cli": phase_cli,
            "maelstrom": phase_maelstrom, "verify": phase_verify,

@@ -351,10 +351,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 def test_txn_step_on_card_equals_cpu(cuda):
     """The entry point's step, three batches and a gc step, on the card and
     on the CPU: equal deps, applied masks and final state; one K1 launch per
-    step on the card, in the form join_form picks."""
+    step on the card, on the kernel join_form picks (layout="tk")."""
     fn, (st, bt) = entry(device=cuda)
     _, (st_c, bt_c) = entry(device="cpu")
-    k1 = ("deps_join", "deps_join_dense")
+    k1 = ("deps_join", "deps_join_dense", "deps_join_dense_tk")
     before = sum(_kernels.LAUNCHES[n] for n in k1)
     for step in range(3):
         shift = torch.tensor([0, 0, 64 * step, 0, 0], dtype=torch.int32)
@@ -438,8 +438,9 @@ def test_two_gloo_ranks_on_the_card_equal_single_card(cuda):
             assert np.array_equal(steps["conflict_max"][i], cmax)
             assert np.array_equal(steps["applied"][i], applied)
         n = r.launches
-        assert n["deps_join"] + n["deps_join_dense"] == 4
-        assert n["max_conflict"] + n["max_conflict_dense"] == 1
+        assert sum(n[f"deps_join{f}"] for f in ("", "_dense", "_dense_tk")) == 4
+        assert sum(n[f"max_conflict{f}"]
+                   for f in ("", "_dense", "_dense_tk")) == 1
     full = gs.state_to_numpy(st)
     rows = full["key_inc"].shape[0] // 2
     for i, r in enumerate(res):
@@ -502,3 +503,144 @@ def test_bench_kernel_on_card_equals_host_tier(cuda, monkeypatch):
     out = bench_torch.bench_kernel(4096)
     assert out["answers_checked"] == 20 * 256
     assert out["device_queries_per_sec"] > 0
+
+
+# ---------------------------------------------------------------------------
+# K1d/K2d on the [T, K] index (csrc/dense_join_tk.cu)
+# ---------------------------------------------------------------------------
+
+# (T, K, B, keys per query row, one wide row's columns): every row of
+# PERF.md's K1d/K2d table, then T and K tails
+TK_CASES = {
+    "config4": (65536, 2048, 64, 1024, 0),
+    "wide_row": (65536, 512, 9, 2, 5000),
+    "shape_A_graph_step_mesh_store": (65536, 512, 256, 2, 0),
+    "mesh_rank": (16384, 512, 256, 2, 0),
+    "six_key_replay_largest": (32768, 1024, 256, 2, 0),
+    "wide_replay_largest": (8192, 8192, 256, 2, 0),
+    "bench_phase_largest": (4096, 512, 256, 2, 0),
+    "burn_verify_largest_and_window": (256, 16, 8, 2, 0),
+    "cli_maelstrom_largest": (128, 16, 8, 1, 0),
+    "T_tail_1003": (1003, 64, 13, 2, 0),
+    "T_tail_one_slot": (2049, 64, 13, 2, 0),
+    "T_below_one_warp": (20, 16, 5, 2, 0),
+    "K_tail_80": (4096, 80, 33, 8, 0),
+    "B_300_two_row_tiles": (2048, 64, 300, 6, 0),
+}
+
+
+def _tk_inputs(t, k, b, per_row, wide, device, seed):
+    rng = np.random.default_rng(seed)
+    inc = (rng.random((t, k)) < min(0.5, 4.0 / k)).astype(np.int8)
+    live = inc.copy()
+    live[rng.random((t, k)) < 0.2] = 0
+    q = np.zeros((b, k), dtype=np.int8)
+    for i in range(b):
+        q[i, rng.choice(k, min(per_row, k), replace=False)] = 1
+    if wide:
+        q[0, rng.integers(0, k, wide)] = 1
+    lanes = rng.integers(0, 50, (t, 5)).astype(np.int32)
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    g = dict(inc=up(inc), live=up(live), q=up(q), txn_id=up(lanes),
+             ts=up(lanes + rng.integers(0, 3, (t, 5)).astype(np.int32)),
+             kind=up(rng.integers(0, 6, t).astype(np.int8)),
+             status=up(rng.integers(0, 7, t).astype(np.int8)),
+             active=up(rng.random(t) < 0.9),
+             before=up(rng.integers(0, 50, (b, 5)).astype(np.int32)),
+             qkind=up(rng.integers(0, 6, b).astype(np.int8)))
+    u8 = {n: g[n].view(torch.uint8) for n in ("inc", "live", "q")}
+    tj = (u8["live"], g["txn_id"], g["kind"], g["status"], g["active"],
+          u8["q"], g["before"], g["qkind"])
+    tm = (u8["inc"], g["ts"], g["txn_id"], g["active"], u8["q"])
+    return g, tj, tm
+
+
+@pytest.mark.parametrize("case", sorted(TK_CASES))
+def test_tk_kernels_equal_plain_and_kt_path(cuda, case):
+    """K1d (bool and bit-packed) and K2d on [T, K], one launch each counted
+    under the _tk names: equal to their plain versions and to the [K, T]
+    CSR kernels on the transposed index and the CSR query."""
+    t, k, b, per_row, wide = TK_CASES[case]
+    g, tj, tm = _tk_inputs(t, k, b, per_row, wide, cuda, seed=t + k + b)
+    offsets, cols = dk.query_csr(g["q"])
+    kj = (dk.incidence_T(g["live"]), g["txn_id"], g["kind"], g["status"],
+          g["active"], offsets, cols, g["before"], g["qkind"])
+    km = (dk.incidence_T(g["inc"]), g["ts"], g["txn_id"], g["active"],
+          offsets, cols)
+    packs = (False, True) if t % 8 == 0 else (False,)
+    before = dict(_kernels.LAUNCHES)
+    for pk in packs:
+        got = _kernels.deps_join_tk(*tj, packed=pk)
+        assert torch.equal(got, _kernels.deps_join_tk_plain(*tj, packed=pk))
+        assert torch.equal(got, _kernels.deps_join(*kj, packed=pk,
+                                                   form="csr"))
+    got = _kernels.max_conflict_tk(*tm)
+    assert torch.equal(got, _kernels.max_conflict_tk_plain(*tm))
+    assert torch.equal(got, _kernels.max_conflict(*km, form="csr"))
+    torch.cuda.synchronize()
+    after = dict(_kernels.LAUNCHES)
+    assert after["deps_join_dense_tk"] == before["deps_join_dense_tk"] + len(packs)
+    assert after["max_conflict_dense_tk"] == before["max_conflict_dense_tk"] + 1
+
+
+def test_tk_kernels_refuse_what_their_tensor_maps_cannot_take(cuda):
+    """K % 16 != 0 and a query one byte off 16-byte alignment: the [T, K]
+    wrappers raise and launch nothing; the one-shot consult forced dense
+    raises, and by the rule takes the CSR route with the plain answer."""
+    g, tj, tm = _tk_inputs(256, 72, 8, 4, 0, cuda, seed=72)
+    before = dict(_kernels.LAUNCHES)
+    with pytest.raises(ValueError):
+        _kernels.deps_join_tk(*tj)
+    with pytest.raises(ValueError):
+        _kernels.max_conflict_tk(*tm)
+    g2, tj2, tm2 = _tk_inputs(256, 64, 8, 4, 0, cuda, seed=64)
+    flat = torch.empty(g2["q"].numel() + 1, dtype=torch.uint8, device=cuda)
+    shifted = flat[1:].view(g2["q"].shape)
+    shifted.copy_(tj2[5])
+    with pytest.raises(ValueError):
+        _kernels.deps_join_tk(*tj2[:5], shifted, *tj2[6:])
+    assert _kernels.LAUNCHES == before
+    args = (g["live"], g["inc"], g["ts"], g["txn_id"], g["kind"],
+            g["status"], g["active"], g["q"], g["before"], g["qkind"])
+    with pytest.raises(ValueError):
+        dk.consult(*args, form="dense")
+    got = dk.consult(*args)
+    want = dk.consult(*(a.cpu() for a in args))
+    for a, w in zip(got, want):
+        assert torch.equal(a.cpu(), w)
+
+
+def test_one_shot_consult_captures_in_a_cuda_graph(cuda):
+    """consult_packed at a config-4-like shape (64 rows of 1,024 of 2,048
+    keys) on the [T, K] route reads nothing back from the card, so it
+    captures into a CUDA graph; replays equal the eager answer and the CPU's
+    after the inputs change in place."""
+    t, k, b = 8192, 2048, 64
+    g, _tj, _tm = _tk_inputs(t, k, b, 1024, 0, cuda, seed=4)
+    args = (g["live"], g["inc"], g["ts"], g["txn_id"], g["kind"],
+            g["status"], g["active"], g["q"], g["before"], g["qkind"])
+    assert _kernels.join_form(b, t, k, layout="tk") == "dense"
+    eager = dk.consult_packed(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        dk.consult_packed(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = dict(_kernels.LAUNCHES)
+    with torch.cuda.graph(graph):
+        out = dk.consult_packed(*args)
+    assert _kernels.LAUNCHES["deps_join_dense_tk"] == before["deps_join_dense_tk"] + 1
+    assert _kernels.LAUNCHES["max_conflict_dense_tk"] == before["max_conflict_dense_tk"] + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, w in zip(out, eager):
+        assert torch.equal(a, w)
+    g["q"].copy_(torch.roll(g["q"], 1, dims=0))          # new rows, in place
+    graph.replay()
+    torch.cuda.synchronize()
+    want = dk.consult_packed(*(a.cpu() for a in args))
+    for a, w in zip(out, want):
+        assert torch.equal(a.cpu(), w)
