@@ -47,7 +47,12 @@ __device__ __forceinline__ void warp_lex_max(const int32_t* mine,
   }
 }
 
+// A kind code as an index of the n-kind witness table, read as the
+// reference's gather reads it: a negative code wraps once (k + n), then
+// the index clamps into [0, n - 1] (n = 6: -1 -> 5, -6 -> 0, -7 -> 0,
+// 100 -> 5).
 __device__ __forceinline__ int clamp_kind(int k, int n) {
+  k = k < 0 ? k + n : k;
   return k < 0 ? 0 : (k >= n ? n - 1 : k);
 }
 

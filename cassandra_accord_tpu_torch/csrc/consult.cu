@@ -63,6 +63,16 @@
 // 6x6 table transposed once into one byte per kind), and moves the
 // dependency bits back to the output order through the warp's ballots.
 //
+// Signed queries.  A caller that holds the index as [T, K] int8 and the
+// query as [B, K] int8 (ops/deps_kernels.py's route for shapes the [T, K]
+// kernels refuse) passes the query's values beside its columns and the
+// index's own signed bytes; the overlap is then the reference's, a sum
+// sum_c val[c] * inc[c, t] > 0 (bf16 operands summed in f32 there, exact
+// int32 here), not an OR.  Those launches take one row per group (R = 1),
+// and each thread keeps eight int32 sums for its slots across the staged
+// chunks; without values (the service's 0/1 index and columns) nothing of
+// the OR walk changes.
+//
 // K2's reduction.  With R = 8 each thread ranks its 8 slots once per block
 // (which slot beats which), so a row's max over its candidate slots is a
 // mask test per slot; the warp's max is then taken lane by lane with
@@ -111,10 +121,11 @@ constexpr int kLead = 2;                         // keys per row loaded together
 constexpr int kBurst = 8;                        // loads per burst of a wide row
 constexpr uint64_t kByteLows = 0x0101010101010101ULL;
 
-template <int R>
+template <int R, bool kSigned>
 struct CsrStage {
   int32_t off[R + 1];                            // offsets[b0 .. b0 + nrows]
   int32_t cols[kStage];                          // columns [c0, c1), -1 = dropped
+  int8_t vals[kSigned ? kStage : 1];             // their values (kSigned)
 };
 
 // bit i = bit 8i of x
@@ -148,7 +159,7 @@ __device__ __forceinline__ uint64_t inc_word(const uint8_t* __restrict__ inc,
 
 // The key overlap of rows b0 .. b0 + nrows - 1 with the warp's slots, in the
 // warp-strided order of the slot data: bit 8r + i = row b0 + r shares a key
-// with slot wbase + lane + 32i.  Every thread of the block calls it: it
+// with slot wbase + lane + 32i (kSigned: the row's signed sum there is > 0).  Every thread of the block calls it: it
 // holds at least one barrier, after which whatever the caller wrote to
 // shared memory before the call is visible block-wide.
 //
@@ -158,14 +169,16 @@ __device__ __forceinline__ uint64_t inc_word(const uint8_t* __restrict__ inc,
 // every row are loaded together, the rest of a wide row in bursts.  The
 // per-row byte masks then move to the strided order by shuffles (slot
 // wbase + lane + 32i sits in byte lane % 8 of lane 4i + lane / 8).
-template <bool kVec8, int R>
+template <bool kVec8, int R, bool kSigned>
 __device__ __forceinline__ uint64_t rows_share(
     const uint8_t* __restrict__ inc, const int32_t* __restrict__ offsets,
-    const int32_t* __restrict__ cols, int b0, int nrows, int T, int K, int t0,
-    int nvalid, CsrStage<R>& st) {
+    const int32_t* __restrict__ cols, const int8_t* __restrict__ vals, int b0,
+    int nrows, int T, int K, int t0, int nvalid, CsrStage<R, kSigned>& st) {
+  static_assert(!kSigned || R == 1, "signed queries take one row a group");
   uint64_t acc[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) acc[r] = 0;
+  int32_t sum[kSigned ? kSlots : 1] = {};        // kSigned: slot t0 + i's sum
   const int lo = __ldg(offsets + b0);
   const int hi = __ldg(offsets + b0 + nrows);
   const int tid = threadIdx.x;
@@ -177,8 +190,25 @@ __device__ __forceinline__ uint64_t rows_share(
       const int c = __ldg(cols + j);
       const int w = c < 0 ? c + K : c;           // wrapped once, as in JAX
       st.cols[j - c0] = (w >= 0 && w < K) ? w : -1;
+      if constexpr (kSigned) st.vals[j - c0] = __ldg(vals + j);
     }
     __syncthreads();
+    if constexpr (kSigned) {
+      // the row's signed sum at each of this thread's slots
+      const int rlo = nrows > 0 ? max(st.off[0], c0) : 0;
+      const int rhi = nrows > 0 ? min(st.off[1], c1) : 0;
+#pragma unroll 1
+      for (int j = rlo; j < rhi; ++j) {
+        const uint64_t w = inc_word<kVec8>(inc, st.cols[j - c0], T, t0, nvalid);
+        const int v = st.vals[j - c0];
+#pragma unroll
+        for (int i = 0; i < kSlots; ++i) {
+          sum[i] += v * static_cast<int>(static_cast<int8_t>(w >> (8 * i)));
+        }
+      }
+      if (c1 >= hi) break;
+      continue;
+    }
     // rows in flight: the first kLead keys of every row, all loads issued
     // before the first OR
     uint64_t w[R][kLead];
@@ -219,6 +249,12 @@ __device__ __forceinline__ uint64_t rows_share(
     }
     if (c1 >= hi) break;
   }
+  if constexpr (kSigned) {
+#pragma unroll
+    for (int i = 0; i < kSlots; ++i) {
+      acc[0] |= static_cast<uint64_t>(sum[i] > 0) << (8 * i);
+    }
+  }
   uint64_t m = 0;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -236,7 +272,7 @@ __device__ __forceinline__ uint64_t rows_share(
 
 // Grid: x = tiles of T, y = blocks per tile; block y walks row groups y,
 // y + gridDim.y, ... of R rows each, with the slot data loaded once.
-template <bool kVec8, int R>
+template <bool kVec8, int R, bool kSigned>
 __global__ void __launch_bounds__(kMaxThreads, kBlocksPerSM)
 deps_join_kernel(const uint8_t* __restrict__ inc,      // [K, T]
                  const int32_t* __restrict__ txn_id,   // [T, 5]
@@ -245,12 +281,13 @@ deps_join_kernel(const uint8_t* __restrict__ inc,      // [K, T]
                  const uint8_t* __restrict__ active,   // [T]
                  const int32_t* __restrict__ offsets,  // [B + 1]
                  const int32_t* __restrict__ cols,     // [N]
+                 const int8_t* __restrict__ qvals,     // [N]   (kSigned)
                  const int32_t* __restrict__ before,   // [B, 5]
                  const int8_t* __restrict__ qkind,     // [B]
                  unsigned long long wit_bits, int n_kinds, int invalidated,
                  int B, int T, int K, int packed,
                  uint8_t* __restrict__ out) {
-  __shared__ CsrStage<R> st;
+  __shared__ CsrStage<R, kSigned> st;
   __shared__ int32_t s_before[R][kLanes];
   __shared__ int32_t s_qkind[R];
   const int tid = threadIdx.x;
@@ -291,8 +328,8 @@ deps_join_kernel(const uint8_t* __restrict__ inc,      // [K, T]
       s_before[i / kLanes][i % kLanes] = __ldg(before + b0 * kLanes + i);
     }
     if (tid < nrows) s_qkind[tid] = clamp_kind(__ldg(qkind + b0 + tid), n_kinds);
-    const uint64_t share = rows_share<kVec8, R>(inc, offsets, cols, b0, nrows,
-                                                T, K, t0, nvalid, st);
+    const uint64_t share = rows_share<kVec8, R, kSigned>(
+        inc, offsets, cols, qvals, b0, nrows, T, K, t0, nvalid, st);
     if (wbase >= T) continue;                  // the whole warp is past T
 #pragma unroll 1
     for (int r = 0; r < nrows; ++r) {
@@ -335,7 +372,7 @@ deps_join_kernel(const uint8_t* __restrict__ inc,      // [K, T]
 
 // scratch (only when gridDim.x > 1): ceil(B / R) zeroed uint32 counters,
 // one per row group, then the partials [B, gridDim.x, 5] int32.
-template <bool kVec8, int R>
+template <bool kVec8, int R, bool kSigned>
 __global__ void __launch_bounds__(kMaxThreads, kBlocksPerSM)
 max_conflict_kernel(const uint8_t* __restrict__ inc,     // [K, T]
                     const int32_t* __restrict__ ts,      // [T, 5]
@@ -343,10 +380,11 @@ max_conflict_kernel(const uint8_t* __restrict__ inc,     // [K, T]
                     const uint8_t* __restrict__ active,  // [T]
                     const int32_t* __restrict__ offsets, // [B + 1]
                     const int32_t* __restrict__ cols,    // [N]
+                    const int8_t* __restrict__ qvals,    // [N]  (kSigned)
                     int B, int T, int K,
                     int32_t* scratch,                    // see above
                     int32_t* __restrict__ out) {         // [B, 5]
-  __shared__ CsrStage<R> st;
+  __shared__ CsrStage<R, kSigned> st;
   __shared__ int32_t s_part[kMaxWarps][R][kLanes];
   __shared__ bool s_last;
   const int tid = threadIdx.x;
@@ -396,8 +434,8 @@ max_conflict_kernel(const uint8_t* __restrict__ inc,     // [K, T]
     const int b0 = g * R;
     const int nrows = min(R, B - b0);
     if (g != static_cast<int>(blockIdx.y)) __syncthreads();  // smem reuse
-    const uint64_t share = rows_share<kVec8, R>(inc, offsets, cols, b0, nrows,
-                                                T, K, t0, nvalid, st);
+    const uint64_t share = rows_share<kVec8, R, kSigned>(
+        inc, offsets, cols, qvals, b0, nrows, T, K, t0, nvalid, st);
 #pragma unroll 1
     for (int r = 0; r < nrows; ++r) {
       // this thread's max over its candidate slots, then the warp's
@@ -475,7 +513,7 @@ max_conflict_kernel(const uint8_t* __restrict__ inc,     // [K, T]
 }
 
 // Rows per group: R = 8 when the card gets a block per SM that way, else 1
-// (more blocks for a small call).  Blocks per tile: enough for kBlocksPerSM
+// (more blocks for a small call; always 1 for a signed query).  Blocks per tile: enough for kBlocksPerSM
 // blocks on every SM, each walking its share of the row groups.  The SM
 // count is that of the current device, read once per device; a failed
 // query is returned, not guessed.
@@ -486,14 +524,15 @@ struct Geometry {
   int groups;
 };
 
-cudaError_t geometry(int B, int T, Geometry* g) {
+cudaError_t geometry(int B, int T, bool is_signed, Geometry* g) {
   int sms = 0;
   const cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
   const int owners = (T + kSlots - 1) / kSlots;            // threads with slots
   const int threads = T > kTile ? kMaxThreads : (owners + 31) / 32 * 32;
   const int n_tiles = (T + kTile - 1) / kTile;
-  const int rows = static_cast<long long>(n_tiles) * ((B + kRows - 1) / kRows) >=
+  const int rows = !is_signed &&
+                           static_cast<long long>(n_tiles) * ((B + kRows - 1) / kRows) >=
                            sms ? kRows : kRowsSmall;
   const int groups = (B + rows - 1) / rows;
   const int per_tile = min((kBlocksPerSM * sms + n_tiles - 1) / n_tiles, 65535);
@@ -503,84 +542,98 @@ cudaError_t geometry(int B, int T, Geometry* g) {
   return cudaSuccess;
 }
 
-template <int R>
+template <int R, bool kSigned>
 void deps_join_run(const Geometry& g, cudaStream_t s, bool vec8,
                    const void* inc, const void* txn_id, const void* kind,
                    const void* status, const void* active, const void* offsets,
-                   const void* cols, const void* before, const void* qkind,
-                   unsigned long long wit_bits, int n_kinds, int invalidated,
-                   int B, int T, int K, int packed, void* out) {
-  auto* kernel = vec8 ? deps_join_kernel<true, R> : deps_join_kernel<false, R>;
+                   const void* cols, const void* vals, const void* before,
+                   const void* qkind, unsigned long long wit_bits, int n_kinds,
+                   int invalidated, int B, int T, int K, int packed, void* out) {
+  auto* kernel = vec8 ? deps_join_kernel<true, R, kSigned>
+                      : deps_join_kernel<false, R, kSigned>;
   kernel<<<g.grid, g.threads, 0, s>>>(
       static_cast<const uint8_t*>(inc), static_cast<const int32_t*>(txn_id),
       static_cast<const int8_t*>(kind), static_cast<const int8_t*>(status),
       static_cast<const uint8_t*>(active), static_cast<const int32_t*>(offsets),
-      static_cast<const int32_t*>(cols), static_cast<const int32_t*>(before),
+      static_cast<const int32_t*>(cols), static_cast<const int8_t*>(vals),
+      static_cast<const int32_t*>(before),
       static_cast<const int8_t*>(qkind), wit_bits, n_kinds, invalidated, B, T,
       K, packed, static_cast<uint8_t*>(out));
 }
 
-template <int R>
+template <int R, bool kSigned>
 void max_conflict_run(const Geometry& g, cudaStream_t s, bool vec8,
                       const void* inc, const void* ts, const void* txn_id,
                       const void* active, const void* offsets,
-                      const void* cols, int B, int T, int K, void* scratch,
-                      void* out) {
-  auto* kernel = vec8 ? max_conflict_kernel<true, R>
-                      : max_conflict_kernel<false, R>;
+                      const void* cols, const void* vals, int B, int T, int K,
+                      void* scratch, void* out) {
+  auto* kernel = vec8 ? max_conflict_kernel<true, R, kSigned>
+                      : max_conflict_kernel<false, R, kSigned>;
   kernel<<<g.grid, g.threads, 0, s>>>(
       static_cast<const uint8_t*>(inc), static_cast<const int32_t*>(ts),
       static_cast<const int32_t*>(txn_id), static_cast<const uint8_t*>(active),
       static_cast<const int32_t*>(offsets), static_cast<const int32_t*>(cols),
-      B, T, K, static_cast<int32_t*>(scratch), static_cast<int32_t*>(out));
+      static_cast<const int8_t*>(vals), B, T, K,
+      static_cast<int32_t*>(scratch), static_cast<int32_t*>(out));
 }
 
 }  // namespace
 
 extern "C" {
 
+// vals: null (the columns name 0/1 index rows, ORed), or the query's int8
+// value beside each column, the index's bytes then read as int8 and summed
 int deps_join_launch(const void* inc, const void* txn_id, const void* kind,
                      const void* status, const void* active,
-                     const void* offsets, const void* cols, const void* before,
-                     const void* qkind, unsigned long long wit_bits,
-                     int n_kinds, int invalidated, int B, int T, int K,
-                     int packed, void* out, void* stream) {
+                     const void* offsets, const void* cols, const void* vals,
+                     const void* before, const void* qkind,
+                     unsigned long long wit_bits, int n_kinds, int invalidated,
+                     int B, int T, int K, int packed, void* out,
+                     void* stream) {
   Geometry g;
-  const cudaError_t err = geometry(B, T, &g);
+  const cudaError_t err = geometry(B, T, vals != nullptr, &g);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   // 8-byte loads need every key row 8-byte aligned
   const bool vec8 = T % kSlots == 0 && (reinterpret_cast<uintptr_t>(inc) & 7) == 0;
-  if (g.rows == kRows) {
-    deps_join_run<kRows>(g, s, vec8, inc, txn_id, kind, status, active,
-                         offsets, cols, before, qkind, wit_bits, n_kinds,
-                         invalidated, B, T, K, packed, out);
+  if (vals != nullptr) {
+    deps_join_run<kRowsSmall, true>(g, s, vec8, inc, txn_id, kind, status,
+                                    active, offsets, cols, vals, before, qkind,
+                                    wit_bits, n_kinds, invalidated, B, T, K,
+                                    packed, out);
+  } else if (g.rows == kRows) {
+    deps_join_run<kRows, false>(g, s, vec8, inc, txn_id, kind, status, active,
+                                offsets, cols, nullptr, before, qkind, wit_bits,
+                                n_kinds, invalidated, B, T, K, packed, out);
   } else {
-    deps_join_run<kRowsSmall>(g, s, vec8, inc, txn_id, kind, status, active,
-                              offsets, cols, before, qkind, wit_bits, n_kinds,
-                              invalidated, B, T, K, packed, out);
+    deps_join_run<kRowsSmall, false>(g, s, vec8, inc, txn_id, kind, status,
+                                     active, offsets, cols, nullptr, before,
+                                     qkind, wit_bits, n_kinds, invalidated, B,
+                                     T, K, packed, out);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // int32 elements of scratch max_conflict_launch needs: 0 when T fits one
-// tile, else one counter per row group and the [B, n_tiles, 5] partials.
-// A failed device query returns minus its CUDA error.
-long long max_conflict_scratch_ints(int B, int T) {
+// tile, else one counter per row group and the [B, n_tiles, 5] partials
+// (is_signed: whether the launch passes values).  A failed device query
+// returns minus its CUDA error.
+long long max_conflict_scratch_ints(int B, int T, int is_signed) {
   Geometry g;
-  const cudaError_t err = geometry(B, T, &g);
+  const cudaError_t err = geometry(B, T, is_signed != 0, &g);
   if (err != cudaSuccess) return -static_cast<long long>(err);
   if (g.grid.x == 1) return 0;
   return static_cast<long long>(g.groups) +
          static_cast<long long>(B) * g.grid.x * kLanes;
 }
 
+// vals: as deps_join_launch's
 int max_conflict_launch(const void* inc, const void* ts, const void* txn_id,
                         const void* active, const void* offsets,
-                        const void* cols, int B, int T, int K, void* scratch,
-                        void* out, void* stream) {
+                        const void* cols, const void* vals, int B, int T,
+                        int K, void* scratch, void* out, void* stream) {
   Geometry g;
-  cudaError_t err = geometry(B, T, &g);
+  cudaError_t err = geometry(B, T, vals != nullptr, &g);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (g.grid.x > 1) {
@@ -589,12 +642,18 @@ int max_conflict_launch(const void* inc, const void* ts, const void* txn_id,
   }
   // 8-byte loads need every key row 8-byte aligned
   const bool vec8 = T % kSlots == 0 && (reinterpret_cast<uintptr_t>(inc) & 7) == 0;
-  if (g.rows == kRows) {
-    max_conflict_run<kRows>(g, s, vec8, inc, ts, txn_id, active, offsets, cols,
-                            B, T, K, scratch, out);
+  if (vals != nullptr) {
+    max_conflict_run<kRowsSmall, true>(g, s, vec8, inc, ts, txn_id, active,
+                                       offsets, cols, vals, B, T, K, scratch,
+                                       out);
+  } else if (g.rows == kRows) {
+    max_conflict_run<kRows, false>(g, s, vec8, inc, ts, txn_id, active,
+                                   offsets, cols, nullptr, B, T, K, scratch,
+                                   out);
   } else {
-    max_conflict_run<kRowsSmall>(g, s, vec8, inc, ts, txn_id, active, offsets,
-                                 cols, B, T, K, scratch, out);
+    max_conflict_run<kRowsSmall, false>(g, s, vec8, inc, ts, txn_id, active,
+                                        offsets, cols, nullptr, B, T, K,
+                                        scratch, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,9 +19,10 @@
 // per_slot[t] = ts_less(ts[t], txn_id[t]) ? txn_id[t] : ts[t] over
 // {t : product > 0 & active[t]}, zero lanes for none.  Inputs as the
 // one-shot callers hold them (ops/deps_kernels.py): the index [T, K] and
-// the query [B, K] as bytes, each nonzero byte a member (u8 x u8 reads it
-// as >= 1, so a sum is > 0 iff some key is in both, and stays below 2^31
-// while 255 * 255 * K does: the wrapper takes K <= 16,384), lanes [*, 5]
+// the query [B, K] as int8 values, the reference's operands (it sums their
+// bf16 products in f32 and tests > 0; s8 x s8 sums them exactly in int32,
+// |sum| <= 2^14 * K < 2^31 for the K <= 16,384 the wrapper takes, so the
+// two agree wherever the reference's f32 sum is exact), lanes [*, 5]
 // int32, kinds and statuses int8, active bool.  No transpose of the index
 // and no CSR query: the callers' [T, K] -> [K, T] copy and their nonzero
 // read-back go.
@@ -45,7 +46,7 @@
 //   "full" mbarrier (expect_tx of the stage's bytes) once the stage's
 //   "empty" mbarrier says both consumers are done with it.
 // - Two consumer warpgroups, each owning half of a stage's slots: per k32
-//   step one wgmma.mma_async m64nNk32.s32.u8.u8 for each 64 slots and each
+//   step one wgmma.mma_async m64nNk32.s32.s8.s8 for each 64 slots and each
 //   128 rows, both descriptors K-major with the 128-byte swizzle (8-row
 //   groups 1024 bytes apart; the k32 steps advance the start address by 32
 //   bytes inside the swizzle atom).  N = 16, 64, 128 or 256 (two n128
@@ -190,20 +191,20 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
 }
 
-// d[64 x N] (+)= a[64 x 32] * b[32 x N], u8 x u8 -> s32, both operands
+// d[64 x N] (+)= a[64 x 32] * b[32 x N], s8 x s8 -> s32, both operands
 // K-major in shared memory; scale_d == 0 starts the sum afresh.  The
 // accumulator of thread (warp w of the warpgroup, lane l), register
 // 4j + 2h + e, is row 16w + l/4 + 8h, column 8j + 2(l%4) + e.
 template <int N>
-__device__ __forceinline__ void wgmma_u8(int32_t* d, uint64_t a, uint64_t b,
+__device__ __forceinline__ void wgmma_s8(int32_t* d, uint64_t a, uint64_t b,
                                          int scale_d);
 
 template <>
-__device__ __forceinline__ void wgmma_u8<16>(int32_t* d, uint64_t a,
+__device__ __forceinline__ void wgmma_s8<16>(int32_t* d, uint64_t a,
                                               uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k32.s32.u8.u8 {"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
       "%0, %1, %2, %3, %4, %5, %6, %7"
       "}, %8, %9, p;\n}\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
@@ -211,11 +212,11 @@ __device__ __forceinline__ void wgmma_u8<16>(int32_t* d, uint64_t a,
 }
 
 template <>
-__device__ __forceinline__ void wgmma_u8<64>(int32_t* d, uint64_t a,
+__device__ __forceinline__ void wgmma_s8<64>(int32_t* d, uint64_t a,
                                               uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.u8.u8 {"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
       "}, %32, %33, p;\n}\n"
@@ -227,11 +228,11 @@ __device__ __forceinline__ void wgmma_u8<64>(int32_t* d, uint64_t a,
 }
 
 template <>
-__device__ __forceinline__ void wgmma_u8<128>(int32_t* d, uint64_t a,
+__device__ __forceinline__ void wgmma_s8<128>(int32_t* d, uint64_t a,
                                               uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.u8.u8 {"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
@@ -278,8 +279,8 @@ __host__ __device__ constexpr size_t tail_bytes(int n, int slots) {
 // gridDim.y, 5] int32 for fold_kernel.
 template <int kMode, int N>
 __global__ void __launch_bounds__(kTkThreads, 1)
-tk_kernel(const __grid_constant__ CUtensorMap imap,   // [T, K] u8
-          const __grid_constant__ CUtensorMap qmap,   // [B, K] u8
+tk_kernel(const __grid_constant__ CUtensorMap imap,   // [T, K] s8
+          const __grid_constant__ CUtensorMap qmap,   // [B, K] s8
           const int32_t* __restrict__ ts,             // [T, 5]  (K2d)
           const int32_t* __restrict__ txn_id,         // [T, 5]
           const int8_t* __restrict__ kind,            // [T]     (K1d)
@@ -380,7 +381,7 @@ tk_kernel(const __grid_constant__ CUtensorMap imap,   // [T, K] u8
         for (int m = 0; m < Sh::kMsub; ++m) {
 #pragma unroll
           for (int n = 0; n < Sh::kNsub; ++n) {
-            wgmma_u8<Sh::kNw>(acc[m][n], sw128_desc(a0 + m * 64 * kKeyBox + ks * 32),
+            wgmma_s8<Sh::kNw>(acc[m][n], sw128_desc(a0 + m * 64 * kKeyBox + ks * 32),
                               sw128_desc(q0 + n * Sh::kNw * kKeyBox + ks * 32),
                               (c | ks) != 0);
           }
@@ -568,7 +569,7 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a [rows, K] u8 row-major tensor as boxes of [box_rows][128 keys] with the
+// a [rows, K] int8 row-major tensor as boxes of [box_rows][128 keys] with the
 // 128-byte swizzle; out-of-range rows and keys read as zero
 cudaError_t encode_map(CUtensorMap* map, const void* base, int rows, int K,
                        int box_rows) {
@@ -649,8 +650,8 @@ cudaError_t tk_launch(int B, int T, int K, cudaStream_t s, const void* inc,
 
 extern "C" {
 
-// K1d on [T, K]: inc [T, K] and query [B, K] u8 (any nonzero byte a
-// member), txn_id [T, 5], kind, status [T] int8, active [T] bool, before
+// K1d on [T, K]: inc [T, K] and query [B, K] int8 (the overlap is their
+// product's sign), txn_id [T, 5], kind, status [T] int8, active [T] bool, before
 // [B, 5], qkind [B] int8; out [B, T] bool or [B, T/8] uint8 (packed)
 int deps_join_tk_launch(const void* inc, const void* query,
                         const void* txn_id, const void* kind,

@@ -57,9 +57,14 @@ query a CSR pair ``offsets [B+1]`` / ``cols [N]`` int32 (duplicates legal,
 entries past ``offsets[B]`` ignored; a column in [-K, -1] names column + K
 and the others outside [0, K) are dropped, in the kernels and the plain
 versions alike, as the reference's densify), lanes ``[*, 5]`` int32, kinds
-and statuses int8, ``active`` bool.  The ``_tk`` entries take the index as
-``[T, K]`` and the query as dense ``[B, K]``, both uint8 with any nonzero
-byte a member, row-major.
+and statuses int8, ``active`` bool.  A kind code indexes the witness table
+as the reference's gather does: a negative code wraps once, then every
+code clamps into the table.  ``vals`` (``[N]`` int8, CSR form only) gives
+each column a signed value, for the ``[T, K]`` callers' route through these
+wrappers: the index bytes are then read as int8 and the overlap is the
+reference's, ``sum_c vals[c] * inc[c, t] > 0``.  The ``_tk`` entries take
+the index as ``[T, K]`` and the query as dense ``[B, K]``, both int8
+values, row-major, with the same signed overlap.
 """
 from __future__ import annotations
 
@@ -170,12 +175,12 @@ def lib() -> ctypes.CDLL:
     if _LIB is None:
         so = ctypes.CDLL(str(build()))
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        so.deps_join_launch.argtypes = [vp] * 9 + [ctypes.c_ulonglong] + \
+        so.deps_join_launch.argtypes = [vp] * 10 + [ctypes.c_ulonglong] + \
             [i32] * 6 + [vp, vp]
         so.deps_join_launch.restype = i32
-        so.max_conflict_launch.argtypes = [vp] * 6 + [i32] * 3 + [vp] * 3
+        so.max_conflict_launch.argtypes = [vp] * 7 + [i32] * 3 + [vp] * 3
         so.max_conflict_launch.restype = i32
-        so.max_conflict_scratch_ints.argtypes = [i32, i32]
+        so.max_conflict_scratch_ints.argtypes = [i32, i32, i32]
         so.max_conflict_scratch_ints.restype = ctypes.c_longlong
         so.deps_join_dense_launch.argtypes = [vp] * 9 + \
             [ctypes.c_ulonglong] + [i32] * 7 + [vp] * 3
@@ -228,37 +233,51 @@ def witnesses_on(device: torch.device) -> torch.Tensor:
 
 
 def _kind_index(kind: torch.Tensor) -> torch.Tensor:
-    # out-of-range codes clamp, as a gather does in the reference
-    return kind.long().clamp(0, _WIT_NP.shape[0] - 1)
+    # as the reference's gather reads a code: a negative one wraps once,
+    # then every code clamps into the table (6 kinds: -1 -> 5, -7 -> 0)
+    n = _WIT_NP.shape[0]
+    return wrap_index(kind.long(), n).clamp(0, n - 1)
 
 
 # ---------------------------------------------------------------------------
 # plain versions (the CPU path, and the yardstick the kernels are held to)
 # ---------------------------------------------------------------------------
 
-def dense_query(offsets: torch.Tensor, cols: torch.Tensor, k: int) -> torch.Tensor:
-    """The CSR query as dense [B, K] int32 counts.  Duplicate columns add up
-    (int32: an int8 or uint8 sum would wrap to 0 at 256); a column in
-    [-k, -1] names column + k and the others outside [0, k) are dropped, as
-    in the reference's densify (``.at[row_ids, flat_cols].add``)."""
+def dense_query(offsets: torch.Tensor, cols: torch.Tensor, k: int,
+                vals: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The CSR query as dense [B, K] int32 counts, or sums of ``vals``.
+    Duplicate columns add up (int32: an int8 or uint8 sum would wrap to 0
+    at 256); a column in [-k, -1] names column + k and the others outside
+    [0, k) are dropped, as in the reference's densify
+    (``.at[row_ids, flat_cols].add``)."""
     b = offsets.numel() - 1
     n = int(offsets[-1]) if b >= 0 else 0
     rows = torch.repeat_interleave(
         torch.arange(b, device=cols.device), (offsets[1:] - offsets[:-1]).long())
     c = wrap_index(cols[:n].long(), k)
     keep = (c >= 0) & (c < k)
+    add = (torch.ones((), dtype=torch.int32, device=cols.device)
+           if vals is None else vals[:n][keep].to(torch.int32))
     q = torch.zeros((b, k), dtype=torch.int32, device=cols.device)
-    q.index_put_((rows[keep], c[keep]),
-                 torch.ones((), dtype=torch.int32, device=cols.device),
-                 accumulate=True)
+    q.index_put_((rows[keep], c[keep]), add, accumulate=True)
     return q
 
 
-def _share(inc_T: torch.Tensor, offsets: torch.Tensor,
-           cols: torch.Tensor) -> torch.Tensor:
-    """[B, T] key overlap.  f32 sums of non-negative counts: > 0 iff some
-    product is > 0, whatever the rounding."""
-    q = dense_query(offsets, cols, inc_T.shape[0])
+def _positive(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a @ b) > 0 for integer-valued operands, exactly: f64 holds every
+    partial sum below 2^53 in magnitude (int8 operands: any K < 2^39)."""
+    return (a.double() @ b.double()) > 0
+
+
+def _share(inc_T: torch.Tensor, offsets: torch.Tensor, cols: torch.Tensor,
+           vals: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[B, T] key overlap.  Without ``vals``: f32 sums of non-negative
+    counts, > 0 iff some product is > 0, whatever the rounding.  With
+    ``vals``: the signed sum of the values times the index bytes read as
+    int8, exactly."""
+    q = dense_query(offsets, cols, inc_T.shape[0], vals)
+    if vals is not None:
+        return _positive(q, inc_T.view(torch.int8))
     return (q.float() @ inc_T.float()) > 0
 
 
@@ -275,10 +294,10 @@ def pack_bits(mask: torch.Tensor) -> torch.Tensor:
 
 
 def _share_tk(inc: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
-    """[B, T] key overlap of the [B, K] query and the [T, K] index, each
-    nonzero byte a member (the kernel's u8 x u8 reading); f32 sums of 0/1
-    products, exact below 2^24 keys."""
-    return ((query != 0).float() @ (inc != 0).float().t()) > 0
+    """[B, T] key overlap of the [B, K] query and the [T, K] index, int8
+    values: the signed sum of their products > 0, as the reference's bf16
+    product summed in f32 (equal wherever that sum is exact), exactly."""
+    return _positive(query, inc.t())
 
 
 def _deps_mask(share, txn_id, kind, status, active, before, qkind, packed):
@@ -291,9 +310,10 @@ def _deps_mask(share, txn_id, kind, status, active, before, qkind, packed):
 
 
 def deps_join_plain(inc_T, txn_id, kind, status, active, offsets, cols,
-                    before, qkind, packed: bool = False) -> torch.Tensor:
-    return _deps_mask(_share(inc_T, offsets, cols), txn_id, kind, status,
-                      active, before, qkind, packed)
+                    before, qkind, packed: bool = False,
+                    vals=None) -> torch.Tensor:
+    return _deps_mask(_share(inc_T, offsets, cols, vals), txn_id, kind,
+                      status, active, before, qkind, packed)
 
 
 def deps_join_tk_plain(inc, txn_id, kind, status, active, query, before,
@@ -328,9 +348,9 @@ def _max_of(share, ts, txn_id, active):
     return lex_max_masked(per_slot[None, :, :], mask)
 
 
-def max_conflict_plain(inc_T, ts, txn_id, active, offsets,
-                       cols) -> torch.Tensor:
-    return _max_of(_share(inc_T, offsets, cols), ts, txn_id, active)
+def max_conflict_plain(inc_T, ts, txn_id, active, offsets, cols,
+                       vals=None) -> torch.Tensor:
+    return _max_of(_share(inc_T, offsets, cols, vals), ts, txn_id, active)
 
 
 def max_conflict_tk_plain(inc, ts, txn_id, active, query) -> torch.Tensor:
@@ -354,7 +374,13 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_common(inc_T, txn_id, active, offsets, cols, before=None):
+# a signed query's row sums stay inside int32 (|sum| <= 2^14 a column) for
+# rows of distinct columns over fewer keys than this
+SIGNED_MAX_K = 2 ** 17 - 1
+
+
+def _check_common(inc_T, txn_id, active, offsets, cols, before=None,
+                  vals=None):
     dev = inc_T.device
     if dev.type != "cuda":
         raise ValueError(f"the consult kernels take CUDA or CPU tensors, got {dev}")
@@ -367,6 +393,11 @@ def _check_common(inc_T, txn_id, active, offsets, cols, before=None):
     _check("cols", cols, torch.int32, (cols.numel(),), dev)
     if before is not None:
         _check("before", before, torch.int32, (b, TS_LANES), dev)
+    if vals is not None:
+        _check("vals", vals, torch.int8, (cols.numel(),), dev)
+        if k > SIGNED_MAX_K:
+            raise ValueError(f"a signed query takes K <= {SIGNED_MAX_K}, "
+                             f"got K={k}")
     if t >= 2 ** 31 or k >= 2 ** 31 or b >= 2 ** 19:
         raise ValueError(f"shape out of the kernels' range: B={b} T={t} K={k}")
     return b, t, k
@@ -422,8 +453,14 @@ def _check_form(form: str) -> None:
         raise ValueError(f"form must be one of {FORMS}, got {form!r}")
 
 
-def _choose(form: str, inc_T: torch.Tensor, b: int, n_cols: int) -> str:
+def _choose(form: str, inc_T: torch.Tensor, b: int, n_cols: int,
+            signed: bool = False) -> str:
     k, t = inc_T.shape
+    if signed:
+        # the dense form reads the query as bits: values take the CSR form
+        if form == "dense":
+            raise ValueError("a signed query (vals) takes the CSR form")
+        return "csr"
     chosen = join_form(b, t, k, n_cols) if form == "auto" else form
     if chosen == "dense" and (k > DENSE_MAX_K or t % 16
                               or inc_T.data_ptr() % 16):
@@ -447,40 +484,43 @@ def _ptr_or_null(x: Optional[torch.Tensor]) -> Optional[ctypes.c_void_p]:
 
 
 def deps_join(inc_T, txn_id, kind, status, active, offsets, cols, before,
-              qkind, packed: bool = False, form: str = "auto") -> torch.Tensor:
+              qkind, packed: bool = False, form: str = "auto",
+              vals: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K1: the dependency mask [B, T] bool, or [B, T/8] uint8 bit-packed,
-    through the CSR or the dense kernel (``form``, see ``join_form``)."""
+    through the CSR or the dense kernel (``form``, see ``join_form``); with
+    ``vals`` the signed overlap, CSR form only."""
     _check_form(form)
     if inc_T.device.type == "cpu":
         return deps_join_plain(inc_T, txn_id, kind, status, active, offsets,
-                               cols, before, qkind, packed)
-    b, t, k = _check_common(inc_T, txn_id, active, offsets, cols, before)
+                               cols, before, qkind, packed, vals)
+    b, t, k = _check_common(inc_T, txn_id, active, offsets, cols, before,
+                            vals)
     dev = inc_T.device
     _check("kind", kind, torch.int8, (t,), dev)
     _check("status", status, torch.int8, (t,), dev)
     _check("qkind", qkind, torch.int8, (b,), dev)
     if packed and t % 8:
         raise ValueError(f"bit-packed output needs T % 8 == 0, got T={t}")
-    dense = _choose(form, inc_T, b, cols.numel()) == "dense"
+    dense = _choose(form, inc_T, b, cols.numel(), vals is not None) == "dense"
     out = torch.empty((b, t // 8) if packed else (b, t),
                       dtype=torch.uint8 if packed else torch.bool, device=dev)
     if b == 0 or t == 0:
         return out
     so = lib()
     name = "deps_join_dense" if dense else "deps_join"
-    args = (_ptr(inc_T), _ptr(txn_id), _ptr(kind), _ptr(status), _ptr(active),
-            _ptr(offsets), _ptr(cols), _ptr(before), _ptr(qkind),
-            ctypes.c_ulonglong(_WIT_BITS), _WIT_NP.shape[0], INVALIDATED, b, t,
-            k)
+    head = (_ptr(inc_T), _ptr(txn_id), _ptr(kind), _ptr(status),
+            _ptr(active), _ptr(offsets), _ptr(cols))
+    tail = (_ptr(before), _ptr(qkind), ctypes.c_ulonglong(_WIT_BITS),
+            _WIT_NP.shape[0], INVALIDATED, b, t, k)
     if dense:
-        # scratch: the query as bits, built by the launch's first kernel
+        # scratch: the query as bytes, built by the launch's first kernel
         scratch = _scratch(so.deps_join_dense_scratch_ints(b, t, k), name, dev)
         rc = so.deps_join_dense_launch(
-            *args, cols.numel(), int(bool(packed)), _ptr_or_null(scratch),
-            _ptr(out), _stream(dev))
+            *head, *tail, cols.numel(), int(bool(packed)),
+            _ptr_or_null(scratch), _ptr(out), _stream(dev))
     else:
-        rc = so.deps_join_launch(*args, int(bool(packed)), _ptr(out),
-                                 _stream(dev))
+        rc = so.deps_join_launch(*head, _ptr_or_null(vals), *tail,
+                                 int(bool(packed)), _ptr(out), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
@@ -493,8 +533,8 @@ def _check_tk(inc, query, txn_id, active, before=None):
         raise ValueError(f"the consult kernels take CUDA or CPU tensors, got {dev}")
     t, k = inc.shape
     b = query.shape[0]
-    _check("inc", inc, torch.uint8, (t, k), dev)
-    _check("query", query, torch.uint8, (b, k), dev)
+    _check("inc", inc, torch.int8, (t, k), dev)
+    _check("query", query, torch.int8, (b, k), dev)
     _check("txn_id", txn_id, torch.int32, (t, TS_LANES), dev)
     _check("active", active, torch.bool, (t,), dev)
     if before is not None:
@@ -509,9 +549,9 @@ def _check_tk(inc, query, txn_id, active, before=None):
 
 def deps_join_tk(inc, txn_id, kind, status, active, query, before, qkind,
                  packed: bool = False) -> torch.Tensor:
-    """K1d on the [T, K] index ``inc`` and the dense [B, K] ``query`` (uint8,
-    each nonzero byte a member): the dependency mask [B, T] bool, or
-    [B, T/8] uint8 bit-packed (csrc/dense_join_tk.cu)."""
+    """K1d on the [T, K] index ``inc`` and the dense [B, K] ``query`` (int8
+    values, the overlap their product's sign): the dependency mask [B, T]
+    bool, or [B, T/8] uint8 bit-packed (csrc/dense_join_tk.cu)."""
     if inc.device.type == "cpu":
         return deps_join_tk_plain(inc, txn_id, kind, status, active, query,
                                   before, qkind, packed)
@@ -563,36 +603,41 @@ def max_conflict_tk(inc, ts, txn_id, active, query) -> torch.Tensor:
 
 
 def max_conflict(inc_T, ts, txn_id, active, offsets, cols,
-                 form: str = "auto") -> torch.Tensor:
+                 form: str = "auto",
+                 vals: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K2: per query row, the lex max [B, 5] int32 of max(ts, txn_id) over
     the active slots sharing a key (zero lanes when none), through the CSR
-    or the dense kernel (``form``, see ``join_form``)."""
+    or the dense kernel (``form``, see ``join_form``); with ``vals`` the
+    signed overlap, CSR form only."""
     _check_form(form)
     if inc_T.device.type == "cpu":
-        return max_conflict_plain(inc_T, ts, txn_id, active, offsets, cols)
-    b, t, k = _check_common(inc_T, txn_id, active, offsets, cols)
+        return max_conflict_plain(inc_T, ts, txn_id, active, offsets, cols,
+                                  vals)
+    b, t, k = _check_common(inc_T, txn_id, active, offsets, cols, vals=vals)
     dev = inc_T.device
     _check("ts", ts, torch.int32, (t, TS_LANES), dev)
-    dense = _choose(form, inc_T, b, cols.numel()) == "dense"
+    dense = _choose(form, inc_T, b, cols.numel(), vals is not None) == "dense"
     out = torch.empty((b, TS_LANES), dtype=torch.int32, device=dev)
     if b == 0 or t == 0:
         return out.zero_()
     so = lib()
     name = "max_conflict_dense" if dense else "max_conflict"
-    args = (_ptr(inc_T), _ptr(ts), _ptr(txn_id), _ptr(active), _ptr(offsets),
-            _ptr(cols), b, t, k)
+    head = (_ptr(inc_T), _ptr(ts), _ptr(txn_id), _ptr(active), _ptr(offsets),
+            _ptr(cols))
     # the kernels write every row of out; scratch: the partials of a row
     # that several blocks share (the CSR form's with their counters) and
-    # the dense form's query bits
+    # the dense form's query bytes
     if dense:
         scratch = _scratch(so.max_conflict_dense_scratch_ints(b, t, k), name,
                            dev)
-        rc = so.max_conflict_dense_launch(*args, cols.numel(),
+        rc = so.max_conflict_dense_launch(*head, b, t, k, cols.numel(),
                                           _ptr_or_null(scratch), _ptr(out),
                                           _stream(dev))
     else:
-        scratch = _scratch(so.max_conflict_scratch_ints(b, t), name, dev)
-        rc = so.max_conflict_launch(*args, _ptr_or_null(scratch), _ptr(out),
+        scratch = _scratch(so.max_conflict_scratch_ints(
+            b, t, int(vals is not None)), name, dev)
+        rc = so.max_conflict_launch(*head, _ptr_or_null(vals), b, t, k,
+                                    _ptr_or_null(scratch), _ptr(out),
                                     _stream(dev))
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")

@@ -19,17 +19,20 @@ incidence, ``[*, 5]`` int32 timestamp lanes, ``[T, T]`` int8 adjacency.
                           (Commands.maybeExecute, Commands.java:617).
 - ``scc_condense``      <- cycle handling (Commands.java:707-775).
 
-The join functions hand the ``[T, K]`` index and the ``[B, K]`` query as
-they lie to the dense kernels K1d/K2d on that layout
-(``_kernels.deps_join_tk`` / ``max_conflict_tk``, csrc/dense_join_tk.cu)
-when ``_kernels.join_form(..., layout="tk")`` says dense (K % 16 == 0 and
+The incidences are the reference's int8 values (bool read as 0/1), and the
+key overlap is its test, the signed sum of the products > 0.  The join
+functions hand the ``[T, K]`` index and the ``[B, K]`` query as they lie
+to the dense kernels K1d/K2d on that layout (``_kernels.deps_join_tk`` /
+``max_conflict_tk``, csrc/dense_join_tk.cu) when
+``_kernels.join_form(..., layout="tk")`` says dense (K % 16 == 0 and
 aligned bases) or ``form="dense"`` forces it (a shape they refuse then
-raises); otherwise they convert to the ``[K, T]`` wrappers' layout — the
-incidence transposed to ``[K, T]`` uint8, the query to CSR, whose size
-is read back — and call K1 (``_kernels.deps_join``) and/or K2
-(``_kernels.max_conflict``), CSR (csrc/consult.cu) or dense
-(csrc/dense_join.cu) by ``_kernels.join_form`` unless ``form="csr"``
-forces CSR.  On CPU tensors every wrapper runs its plain torch version.
+raises); otherwise (or with ``form="csr"``) they convert to the ``[K, T]``
+wrappers' layout — the incidence transposed to ``[K, T]`` int8 bytes, the
+query to CSR with its values beside the columns, whose size is read back —
+and call the CSR kernels K1 (``_kernels.deps_join``) and/or K2
+(``_kernels.max_conflict``, csrc/consult.cu) with those values, which sum
+the signed products as the [T, K] kernels do.  On CPU tensors every
+wrapper runs its plain torch version.
 The graph functions are ``jax.jit`` code in the reference, not Pallas, so
 they are torch ops on the tensors' device; their while loops are Python
 loops with the reference's bounds, reading one flag back from the device
@@ -87,20 +90,24 @@ def _bool_matvec(a: torch.Tensor, v: torch.Tensor,
 
 
 def incidence_T(inc: torch.Tensor) -> torch.Tensor:
-    """[T, K] 0/1 incidence -> the kernels' [K, T] uint8 layout."""
-    return (inc != 0).to(torch.uint8).t().contiguous()
+    """[T, K] incidence -> the kernels' [K, T] uint8 layout, each byte the
+    value's int8 (K1/K2 read them signed when the query brings values)."""
+    return _s8(inc).t().contiguous().view(torch.uint8)
 
 
-def query_csr(batch_key_inc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dense [B, K] 0/1 query -> CSR (offsets [B+1], cols [N]) int32 over
-    its nonzero entries, row-major."""
+def query_csr(batch_key_inc: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Dense [B, K] query -> CSR over its nonzero entries, row-major:
+    offsets [B+1] and cols [N] int32, and their int8 values [N]."""
     b = batch_key_inc.shape[0]
-    nz = torch.nonzero(batch_key_inc != 0)                          # [N, 2]
+    q = _s8(batch_key_inc)
+    nz = torch.nonzero(q)                                           # [N, 2]
     counts = torch.bincount(nz[:, 0], minlength=b)
     offsets = torch.zeros((b + 1,), dtype=torch.int32,
                           device=batch_key_inc.device)
     offsets[1:] = torch.cumsum(counts, 0)
-    return offsets, nz[:, 1].to(torch.int32).contiguous()
+    return (offsets, nz[:, 1].to(torch.int32).contiguous(),
+            q[nz[:, 0], nz[:, 1]].contiguous())
 
 
 def _i8(x: torch.Tensor) -> torch.Tensor:
@@ -115,19 +122,22 @@ def _bool(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bool).contiguous()
 
 
-def _bytes(x: torch.Tensor) -> torch.Tensor:
-    """A 0/1 incidence as the [T, K] kernels read it, uint8 with each
-    nonzero byte a member: int8, uint8 and bool tensors are viewed, not
-    copied."""
+def _s8(x: torch.Tensor) -> torch.Tensor:
+    """An incidence as the kernels read it: int8 values, the reference's
+    operand type (it multiplies them as bf16).  int8 and bool tensors are
+    viewed, not copied; others are converted (``.to(torch.int8)``, so
+    values outside [-128, 127] lie outside the contract)."""
     x = x.contiguous()
-    if x.dtype in (torch.int8, torch.uint8, torch.bool):
-        return x.view(torch.uint8)
-    return (x != 0).to(torch.uint8)
+    if x.dtype == torch.int8:
+        return x
+    if x.dtype == torch.bool:
+        return x.view(torch.int8)
+    return x.to(torch.int8)
 
 
 def _tk_dense(form: str, *incidences: torch.Tensor) -> bool:
     """Whether a call over these [T, K] incidences (the query last, as
-    ``_bytes`` gives them) goes to the [T, K] kernels: by the rule for
+    ``_s8`` gives them) goes to the [T, K] kernels: by the rule for
     "auto" (an index or query they cannot take goes to CSR), always for a
     forced "dense" (which raises on such a one), never for "csr"."""
     _kernels._check_form(form)
@@ -146,17 +156,18 @@ def _tk_dense(form: str, *incidences: torch.Tensor) -> bool:
 
 def _join(index_key_inc, index_txn_id, index_kind, index_status, index_active,
           batch_key_inc, batch_before, batch_kind, packed=False, form="auto"):
-    inc, query = _bytes(index_key_inc), _bytes(batch_key_inc)
+    inc, query = _s8(index_key_inc), _s8(batch_key_inc)
     if _tk_dense(form, inc, query):
         return _kernels.deps_join_tk(
             inc, _i32(index_txn_id), _i8(index_kind), _i8(index_status),
             _bool(index_active), query, _i32(batch_before), _i8(batch_kind),
             packed=packed)
-    offsets, cols = query_csr(batch_key_inc)
+    offsets, cols, vals = query_csr(query)
     return _kernels.deps_join(
-        incidence_T(index_key_inc), _i32(index_txn_id), _i8(index_kind),
+        incidence_T(inc), _i32(index_txn_id), _i8(index_kind),
         _i8(index_status), _bool(index_active), offsets, cols,
-        _i32(batch_before), _i8(batch_kind), packed=packed, form=form)
+        _i32(batch_before), _i8(batch_kind), packed=packed, form="csr",
+        vals=vals)
 
 
 def overlap_join(index_key_inc: torch.Tensor,   # [T, K] int8 — in-flight txns
@@ -191,22 +202,22 @@ def max_conflict_keys(index_key_inc: torch.Tensor,  # [T, K] int8
     """Per query, the lexicographic max of max(executeAt, txnId) over every
     active indexed txn sharing a key.  Returns [B, 5] int32 (zero lanes =
     none)."""
-    inc, query = _bytes(index_key_inc), _bytes(batch_key_inc)
+    inc, query = _s8(index_key_inc), _s8(batch_key_inc)
     if _tk_dense(form, inc, query):
         return _kernels.max_conflict_tk(inc, _i32(index_ts),
                                         _i32(index_txn_id),
                                         _bool(index_active), query)
-    offsets, cols = query_csr(batch_key_inc)
+    offsets, cols, vals = query_csr(query)
     return _kernels.max_conflict(
-        incidence_T(index_key_inc), _i32(index_ts), _i32(index_txn_id),
-        _bool(index_active), offsets, cols, form=form)
+        incidence_T(inc), _i32(index_ts), _i32(index_txn_id),
+        _bool(index_active), offsets, cols, form="csr", vals=vals)
 
 
 def _consult(index_live_inc, index_key_inc, index_ts, index_txn_id,
              index_kind, index_status, index_active, batch_key_inc,
              batch_before, batch_kind, packed, form):
-    live, key, query = (_bytes(x) for x in (index_live_inc, index_key_inc,
-                                            batch_key_inc))
+    live, key, query = (_s8(x) for x in (index_live_inc, index_key_inc,
+                                         batch_key_inc))
     if _tk_dense(form, live, key, query):
         txn_id, active = _i32(index_txn_id), _bool(index_active)
         deps = _kernels.deps_join_tk(
@@ -214,14 +225,15 @@ def _consult(index_live_inc, index_key_inc, index_ts, index_txn_id,
             _i32(batch_before), _i8(batch_kind), packed=packed)
         return deps, _kernels.max_conflict_tk(key, _i32(index_ts), txn_id,
                                               active, query)
-    offsets, cols = query_csr(batch_key_inc)
+    offsets, cols, vals = query_csr(query)
     deps = _kernels.deps_join(
-        incidence_T(index_live_inc), _i32(index_txn_id), _i8(index_kind),
+        incidence_T(live), _i32(index_txn_id), _i8(index_kind),
         _i8(index_status), _bool(index_active), offsets, cols,
-        _i32(batch_before), _i8(batch_kind), packed=packed, form=form)
+        _i32(batch_before), _i8(batch_kind), packed=packed, form="csr",
+        vals=vals)
     max_lanes = _kernels.max_conflict(
-        incidence_T(index_key_inc), _i32(index_ts), _i32(index_txn_id),
-        _bool(index_active), offsets, cols, form=form)
+        incidence_T(key), _i32(index_ts), _i32(index_txn_id),
+        _bool(index_active), offsets, cols, form="csr", vals=vals)
     return deps, max_lanes
 
 

@@ -639,10 +639,9 @@ def _kernel_case(ctx, label, t, k, b, keys_per_txn, iters, packed=(False, True),
     for i, r in enumerate(rows):
         q[i, r] = 1
     tk = dict(live=up(live), key=up(key_inc), q=up(q))
-    tj = (tk["live"].view(torch.uint8), g["txn_id"], g["kind"], g["status"],
-          g["active"], tk["q"].view(torch.uint8), g["before"], g["qkind"])
-    tm = (tk["key"].view(torch.uint8), g["ts"], g["txn_id"], g["active"],
-          tk["q"].view(torch.uint8))
+    tj = (tk["live"], g["txn_id"], g["kind"], g["status"], g["active"],
+          tk["q"], g["before"], g["qkind"])
+    tm = (tk["key"], g["ts"], g["txn_id"], g["active"], tk["q"])
     need(torch.equal(K.deps_join_tk_plain(*tj), deps)
          and torch.equal(K.max_conflict_tk_plain(*tm), cmax),
          f"[{label}] the [T, K] plain versions differ from the [K, T] path")
@@ -673,16 +672,17 @@ def _kernel_case(ctx, label, t, k, b, keys_per_txn, iters, packed=(False, True),
 def transpose_consult(*args, packed=False):
     """The one-shot consult's transpose route, the one a [T, K] caller
     takes when the [T, K] kernels refuse its shape: both incidences
-    transposed to [K, T], the query to CSR (its size read back), then K1
-    and K2 in the form join_form picks."""
+    transposed to [K, T], the query to CSR with its values (its size read
+    back), then K1 and K2 in the CSR form with those values."""
     from cassandra_accord_tpu_torch.ops import _kernels as K
     from cassandra_accord_tpu_torch.ops import deps_kernels as dk
     live, key, ts, txn_id, kind, status, active, q, before, qkind = args
-    offsets, cols = dk.query_csr(q)
+    offsets, cols, vals = dk.query_csr(q)
     deps = K.deps_join(dk.incidence_T(live), txn_id, kind, status, active,
-                       offsets, cols, before, qkind, packed=packed)
+                       offsets, cols, before, qkind, packed=packed,
+                       form="csr", vals=vals)
     return deps, K.max_conflict(dk.incidence_T(key), ts, txn_id, active,
-                                offsets, cols)
+                                offsets, cols, form="csr", vals=vals)
 
 
 def _oneshot_split(ctx, args, want):
@@ -711,7 +711,7 @@ def _oneshot_split(ctx, args, want):
     for name in ("transpose", "tk", "tk", "transpose"):
         ms[name].append(eager_ms(torch, routes[name], reps, flush))
     live, key, ts, txn_id, kind, status, active, q, before, qkind = args
-    offsets, cols = dk.query_csr(q)
+    offsets, cols, vals = dk.query_csr(q)
     live_T, key_T = dk.incidence_T(live), dk.incidence_T(key)
     parts = {
         "incidence_T_x2": eager_ms(torch, lambda: (dk.incidence_T(live),
@@ -720,11 +720,11 @@ def _oneshot_split(ctx, args, want):
         "query_csr": eager_ms(torch, lambda: dk.query_csr(q), reps, flush),
         "kernels": device_ms(torch, lambda: (
             K.deps_join(live_T, txn_id, kind, status, active, offsets, cols,
-                        before, qkind, packed=True),
-            K.max_conflict(key_T, ts, txn_id, active, offsets, cols)),
+                        before, qkind, packed=True, vals=vals),
+            K.max_conflict(key_T, ts, txn_id, active, offsets, cols,
+                           vals=vals)),
             reps, flush),
-        "form": K.join_form(q.shape[0], live.shape[0], live.shape[1],
-                            cols.numel())}
+        "form": "csr"}
     last = [None]
 
     def graphed():
@@ -860,6 +860,7 @@ def phase_kernels(ctx):
             "method_floor_ms", "wrapper_host_us", "plain_ms", "library_ms",
             "bound_ms", "bound_by")
     return {"negative_columns": _kernel_columns(ctx),
+            "parity": _parity(ctx),
             "tk_refused": _tk_refused(ctx),
             "cases": [dict({k: r[k] for k in keys},
                            bound_us=r["bound_ms"] * 1e3) for r in rows],
@@ -1144,6 +1145,92 @@ def _kernel_columns(ctx):
              f"negative columns ({form}): a row of dropped columns found a "
              "conflict")
     return {"T": t, "K": k, "rows": rows, "max_abs_err": errs}
+
+
+ODD_KINDS = (-1, -6, -7, -128, 9, 100, 127)
+
+
+def _odd_kinds(np, rng, kinds):
+    """``kinds`` with about half its codes outside the witness table."""
+    out = kinds.copy()
+    odd = rng.random(out.size) < 0.5
+    out[odd] = rng.choice(ODD_KINDS, int(odd.sum()))
+    return out
+
+
+def _parity(ctx):
+    """The two inputs on which the port once differed from the reference,
+    in every form on the card, each held exactly against the plain
+    versions: kind
+    codes outside the witness table in K1 (CSR), K1d on [K, T] and K1d on
+    [T, K]; signed incidence bytes through the one-shot consult on the
+    [T, K] kernels (K = 64 and 512) and on its CSR route (K = 72, the
+    query's values beside its columns), with the launches of each."""
+    import numpy as np
+    torch = ctx["torch"]
+    from cassandra_accord_tpu_torch.ops import _kernels as K
+    from cassandra_accord_tpu_torch.ops import deps_kernels as dk
+    rng = np.random.default_rng(47)
+    dev = ctx["dev"]
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    t, k, b = 16384, 64, 33
+    key_inc, live, lanes, ts, kind, status, active = make_index(
+        np, rng, t, k, 2)
+    rows = [sorted(int(c) for c in rng.choice(k, 40, replace=False))
+            for _ in range(b)]
+    _r, before, qkind = make_queries(np, rng, b, k, t, 2)
+    kind, qkind = _odd_kinds(np, rng, kind), _odd_kinds(np, rng, qkind)
+    offsets, cols = to_csr(np, rows)
+    q = np.zeros((b, k), dtype=np.int8)
+    for i, r in enumerate(rows):
+        q[i, r] = 1
+    jargs = (up((live != 0).T.astype(np.uint8)), up(lanes), up(kind),
+             up(status), up(active), up(offsets), up(cols), up(before),
+             up(qkind))
+    want = K.deps_join_plain(*jargs)
+    kinds = {form: max_abs_err(torch, ctx["real"]["deps_join"](
+        *jargs, form=form), want) for form in FORMS}
+    kinds["tk"] = max_abs_err(torch, ctx["real"]["deps_join_tk"](
+        up(live), up(lanes), up(kind), up(status), up(active), up(q),
+        up(before), up(qkind)), want)
+    sync(ctx)
+    need(all(e == 0 for e in kinds.values()),
+         f"kind codes outside the table: a K1 form differs {kinds}")
+    signed = {}
+    for k2, t2 in ((64, 16384), (512, 16384), (72, 4096)):
+        def vals(shape, p):
+            x = rng.integers(-2, 3, shape) * (rng.random(shape) < p)
+            ext = rng.random(shape) < 0.01
+            x[ext] = rng.choice([-128, 127], int(ext.sum()))
+            return x.astype(np.int8)
+        inc = vals((t2, k2), 0.3)
+        key2, _l, lanes2, ts2, kind2, status2, active2 = make_index(
+            np, rng, t2, 16, 2)
+        _r, before2, qkind2 = make_queries(np, rng, b, 16, t2, 2)
+        args = (up(inc * (rng.random(inc.shape) < 0.8)), up(inc), up(ts2),
+                up(lanes2), up(_odd_kinds(np, rng, kind2)), up(status2),
+                up(active2), up(vals((b, k2), 0.2)), up(before2),
+                up(_odd_kinds(np, rng, qkind2)))
+        K.reset_launches()
+        got = dk.consult(*args)
+        sync(ctx)
+        launches = {n: v for n, v in K.LAUNCHES.items() if v}
+        plain = (K.deps_join_tk_plain(args[0], *args[3:7], args[7], *args[8:]),
+                 K.max_conflict_tk_plain(args[1], args[2], args[3], args[6],
+                                         args[7]))
+        errs = [max_abs_err(torch, a, w) for a, w in zip(got, plain)]
+        route = "tk" if K.tk_refusal(k2) is None else "csr"
+        need(all(e == 0 for e in errs) and launches == (
+            {n: 1 for n in TK_KERNELS} if route == "tk"
+            else {n: 1 for n in CSR_KERNELS}),
+             f"signed bytes at K={k2} ({route} route): errors {errs}, "
+             f"launches {launches}")
+        signed[f"K{k2}_{route}"] = {"max_abs_err": max(errs),
+                                    "launches": launches,
+                                    "deps_found": int(got[0].sum())}
+    return {"negative_kinds_max_abs_err": kinds, "signed_bytes": signed}
 
 
 def bare_service_resolver(cfg_cls, resolver_cls, key_inc, lanes, kind,

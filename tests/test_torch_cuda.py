@@ -550,10 +550,9 @@ def _tk_inputs(t, k, b, per_row, wide, device, seed):
              active=up(rng.random(t) < 0.9),
              before=up(rng.integers(0, 50, (b, 5)).astype(np.int32)),
              qkind=up(rng.integers(0, 6, b).astype(np.int8)))
-    u8 = {n: g[n].view(torch.uint8) for n in ("inc", "live", "q")}
-    tj = (u8["live"], g["txn_id"], g["kind"], g["status"], g["active"],
-          u8["q"], g["before"], g["qkind"])
-    tm = (u8["inc"], g["ts"], g["txn_id"], g["active"], u8["q"])
+    tj = (g["live"], g["txn_id"], g["kind"], g["status"], g["active"],
+          g["q"], g["before"], g["qkind"])
+    tm = (g["inc"], g["ts"], g["txn_id"], g["active"], g["q"])
     return g, tj, tm
 
 
@@ -564,7 +563,7 @@ def test_tk_kernels_equal_plain_and_kt_path(cuda, case):
     CSR kernels on the transposed index and the CSR query."""
     t, k, b, per_row, wide = TK_CASES[case]
     g, tj, tm = _tk_inputs(t, k, b, per_row, wide, cuda, seed=t + k + b)
-    offsets, cols = dk.query_csr(g["q"])
+    offsets, cols, _vals = dk.query_csr(g["q"])
     kj = (dk.incidence_T(g["live"]), g["txn_id"], g["kind"], g["status"],
           g["active"], offsets, cols, g["before"], g["qkind"])
     km = (dk.incidence_T(g["inc"]), g["ts"], g["txn_id"], g["active"],
@@ -596,7 +595,7 @@ def test_tk_kernels_refuse_what_their_tensor_maps_cannot_take(cuda):
     with pytest.raises(ValueError):
         _kernels.max_conflict_tk(*tm)
     g2, tj2, tm2 = _tk_inputs(256, 64, 8, 4, 0, cuda, seed=64)
-    flat = torch.empty(g2["q"].numel() + 1, dtype=torch.uint8, device=cuda)
+    flat = torch.empty(g2["q"].numel() + 1, dtype=torch.int8, device=cuda)
     shifted = flat[1:].view(g2["q"].shape)
     shifted.copy_(tj2[5])
     with pytest.raises(ValueError):
@@ -644,3 +643,102 @@ def test_one_shot_consult_captures_in_a_cuda_graph(cuda):
     want = dk.consult_packed(*(a.cpu() for a in args))
     for a, w in zip(out, want):
         assert torch.equal(a.cpu(), w)
+
+
+# ---------------------------------------------------------------------------
+# the parity inputs in every form
+# ---------------------------------------------------------------------------
+
+ODD_KINDS = (-1, -6, -7, -128, 9, 100, 127)
+
+
+def _odd_kinds(g, rng):
+    """Half the index's and the query's kind codes outside the table."""
+    for name in ("kind", "qkind"):
+        x = g[name].cpu().numpy().copy()
+        odd = rng.random(x.size) < 0.5
+        x[odd] = rng.choice(ODD_KINDS, int(odd.sum()))
+        g[name] = torch.from_numpy(x).to(g[name].device)
+
+
+def _signed_tk(t, k, b, device, seed):
+    """[T, K] index and [B, K] query of int8 values -2..2 (mostly 0) with
+    -128 and 127 mixed in, so that sums of every sign occur."""
+    rng = np.random.default_rng(seed)
+
+    def signed(shape, p):
+        x = rng.integers(-2, 3, shape) * (rng.random(shape) < p)
+        ext = rng.random(shape) < 0.01
+        x[ext] = rng.choice([-128, 127], int(ext.sum()))
+        return torch.from_numpy(x.astype(np.int8)).to(device)
+    g, _tj, _tm = _tk_inputs(t, k, b, 2, 0, device, seed)
+    g.update(inc=signed((t, k), 0.3), q=signed((b, k), 0.2))
+    g["live"] = g["inc"] * (torch.rand((t, k), device=device) < 0.8)
+    _odd_kinds(g, rng)
+    return g
+
+
+@pytest.mark.parametrize("k", [64, 512])
+def test_tk_kernels_with_signed_bytes_equal_plain(cuda, k):
+    """K1d/K2d on [T, K] (s8 x s8 products) on signed bytes and kinds
+    outside the table: equal to the plain versions' exact sums."""
+    g = _signed_tk(4096, k, 33, cuda, seed=k)
+    tj = (g["live"], g["txn_id"], g["kind"], g["status"], g["active"],
+          g["q"], g["before"], g["qkind"])
+    tm = (g["inc"], g["ts"], g["txn_id"], g["active"], g["q"])
+    for pk in (False, True):
+        assert torch.equal(_kernels.deps_join_tk(*tj, packed=pk),
+                           _kernels.deps_join_tk_plain(*tj, packed=pk))
+    assert torch.equal(_kernels.max_conflict_tk(*tm),
+                       _kernels.max_conflict_tk_plain(*tm))
+
+
+@pytest.mark.parametrize("t", [1024, 4104])
+def test_csr_kernels_with_signed_values_equal_plain(cuda, t):
+    """K1/K2 with the query's values beside its columns (the [T, K]
+    callers' CSR route; at K = 72 the consult takes it by the rule):
+    equal to the plain versions and to the [T, K] kernels' plain versions,
+    and the one-shot consult on the card equals the CPU's."""
+    k = 72
+    g = _signed_tk(t, k, 21, cuda, seed=t)
+    offsets, cols, vals = dk.query_csr(g["q"])
+    kj = (dk.incidence_T(g["live"]), g["txn_id"], g["kind"], g["status"],
+          g["active"], offsets, cols, g["before"], g["qkind"])
+    km = (dk.incidence_T(g["inc"]), g["ts"], g["txn_id"], g["active"],
+          offsets, cols)
+    for pk in ((False, True) if t % 8 == 0 else (False,)):
+        got = _kernels.deps_join(*kj, packed=pk, vals=vals)
+        assert torch.equal(got, _kernels.deps_join_plain(*kj, packed=pk,
+                                                         vals=vals))
+    got = _kernels.max_conflict(*km, vals=vals)
+    assert torch.equal(got, _kernels.max_conflict_plain(*km, vals=vals))
+    with pytest.raises(ValueError):
+        _kernels.max_conflict(*km, form="dense", vals=vals)
+    args = (g["live"], g["inc"], g["ts"], g["txn_id"], g["kind"],
+            g["status"], g["active"], g["q"], g["before"], g["qkind"])
+    before = dict(_kernels.LAUNCHES)
+    got = dk.consult(*args)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["deps_join"] == before["deps_join"] + 1
+    assert _kernels.LAUNCHES["max_conflict"] == before["max_conflict"] + 1
+    for a, w in zip(got, dk.consult(*(x.cpu() for x in args))):
+        assert torch.equal(a.cpu(), w)
+
+
+def test_negative_kinds_in_every_k1_form_equal_plain(cuda):
+    """Kind codes -1, -6, -7, -128 and codes past the table in K1 (CSR),
+    K1d on [K, T] and K1d on [T, K], each equal to the plain versions."""
+    t, k, b = 4096, 64, 33
+    rng = np.random.default_rng(11)
+    g = _inputs(rng, t, k, b, cuda, width=40)
+    _odd_kinds(g, rng)
+    args, _margs = _args(g)
+    want = _kernels.deps_join_plain(*args)
+    for form in ("csr", "dense"):
+        assert torch.equal(_kernels.deps_join(*args, form=form), want)
+    q = _kernels.dense_query(g["offsets"], g["cols"], k).clamp(max=1) \
+        .to(torch.int8)
+    inc = g["inc"].t().contiguous().view(torch.int8)
+    tj = (inc, g["txn_id"], g["kind"], g["status"], g["active"], q,
+          g["before"], g["qkind"])
+    assert torch.equal(_kernels.deps_join_tk(*tj), want)

@@ -217,12 +217,15 @@ def test_forced_dense_on_a_refused_k_raises(k):
 
 
 def test_tk_dense_views_without_copy():
-    """The [T, K] route reads int8, uint8 and bool incidences as they lie
-    (a view, no copy) and others through a 0/1 conversion."""
+    """The [T, K] route reads an incidence as the reference does, as int8
+    values: int8 and bool tensors as they lie (a view, no copy), others
+    converted with their signs kept, so a -1 stays -1 and is no member."""
     x = torch.zeros((4, 16), dtype=torch.int8)
     x[1, 2] = -1
-    assert dk._bytes(x).data_ptr() == x.data_ptr()
-    assert dk._bytes(x).dtype == torch.uint8
-    assert dk._bytes(x.bool()).dtype == torch.uint8
-    y = dk._bytes(x.to(torch.int32))
-    assert y.dtype == torch.uint8 and int(y[1, 2]) == 1
+    assert dk._s8(x).data_ptr() == x.data_ptr()
+    assert dk._s8(x).dtype == torch.int8
+    m = x.bool()
+    assert dk._s8(m).data_ptr() == m.data_ptr()
+    assert dk._s8(m).dtype == torch.int8 and int(dk._s8(m)[1, 2]) == 1
+    y = dk._s8(x.to(torch.int32))
+    assert y.dtype == torch.int8 and int(y[1, 2]) == -1

@@ -342,21 +342,38 @@ def test_wrappers_raise_off_cpu_and_cuda():
 
 
 def test_out_of_range_codes_and_columns_equal_reference():
-    """Kind codes past the witness table clamp (as the reference's gather
-    does); query columns at or past K, or below -K, are dropped, and a
-    column in [-K, -1] names column + K (as its scatter does)."""
+    """Kind codes outside the witness table read as the reference's gather
+    reads them: a negative code wraps once (+6), then every code clamps
+    into the table (9 -> 5, -1 -> 5, -6 -> 0, -7 -> 0, -128 -> 0), in the
+    service's consult, the one-shot consult and the fused join; query
+    columns at or past K, or below -K, are dropped, and a column in [-K, -1]
+    names column + K (as its scatter does)."""
     rng = np.random.default_rng(41)
     ix = _mk_index(rng, 64, K)
-    ix["kind"][::5] = 9
-    rows = [(1, K + 3), (K,), (2, 3), (-1,), (-K,), (-K - 1,), (-1, K - 1)]
+    for i, code in enumerate((9, -1, -6, -7, -128)):
+        ix["kind"][i::7] = code
+    rows = [(1, K + 3), (K,), (2, 3), (-1,), (-K,), (-K - 1,), (-1, K - 1),
+            (4, 5, 6), (7, 8), (9, 10), (11, 12, 13)]
     before = [(400, 400, 400, 400, 400)] * len(rows)
-    ref, port = _ragged_pair(ix, rows, before, [9, 1, 4, 1, 1, 1, 4], False)
+    qkind = [9, 1, 4, 1, 1, 1, 4, -1, -6, -7, -128]
+    ref, port = _ragged_pair(ix, rows, before, qkind, False)
     for a, b in zip(port, ref):
         _assert_equal(a, b)
     deps, cmax = port
     # the wrapped columns name real keys; the one below -K names none
     assert deps[3].any() and deps[4].any() and cmax[3].any()
     assert not deps[5].any() and not cmax[5].any()
+    # the one-shot consult and the fused join on the same kinds
+    bt = _mk_batch(rng, len(qkind))
+    bt["kind"] = np.asarray(qkind, dtype=np.int8)
+    args = _consult_args(ix, bt)
+    for got, want in zip(_port(dk.consult, *args), _ref(ref_dk.consult, *args)):
+        _assert_equal(got, want)
+    jargs = (ix["key"], ix["txn_id"], ix["kind"], ix["status"], ix["active"],
+             bt["q"], bt["before"], bt["kind"])
+    _assert_equal(_port(overlap_join_fused, *jargs),
+                  np.asarray(ref_overlap_join_fused(
+                      *(jnp.asarray(a) for a in jargs), interpret=True)))
 
 
 def test_observe_peak_share_keys():

@@ -42,7 +42,7 @@ from cassandra_accord_tpu_torch.ops import _kernels as K  # noqa: E402
 SRC = K.CSRC / "dense_join_tk.cu"
 OUT = ROOT / "build" / "tk_probes"
 MSUB = "  static constexpr int kMsub = N <= 128 ? 2 : 1;"
-PRODUCT = "wgmma_u8<Sh::kNw>("
+PRODUCT = "wgmma_s8<Sh::kNw>("
 # name: (source substitutions); "built" is the library the port loads
 VARIANTS = {"built": (),
             "slots128": ((MSUB, "  static constexpr int kMsub = 1;"),),
@@ -102,8 +102,8 @@ def inputs(t, k, b, density, qdensity, seed):
     def up(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     lanes = rng.integers(0, 50, (t, 5)).astype(np.int32)
-    g = dict(inc=up((rng.random((t, k)) < density).astype(np.uint8)),
-             q=up((rng.random((b, k)) < qdensity).astype(np.uint8)),
+    g = dict(inc=up((rng.random((t, k)) < density).astype(np.int8)),
+             q=up((rng.random((b, k)) < qdensity).astype(np.int8)),
              txn_id=up(lanes),
              ts=up(lanes + rng.integers(0, 3, (t, 5)).astype(np.int32)),
              kind=up(rng.integers(0, 6, t).astype(np.int8)),
