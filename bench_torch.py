@@ -334,6 +334,11 @@ def bench_kernel(t, k=512, b=256, iters=20, keys_per_txn=2, packed=False):
     batches = [tuple(up(x) for x in bt) for bt in host_batches]
     kernel = dk.consult_packed if packed else dk.consult
     kernel(*index_dev, up(q), up(before), up(qkind))     # warm-up (build)
+    # one whole loop untimed first, so that the timed one finds its outputs'
+    # memory in the caching allocator (as a serving loop does) instead of
+    # paying each batch's first allocation inside the window
+    warm = [kernel(*index_dev, *bt) for bt in batches]
+    del warm
     outs, seconds = _timed(dev, lambda: [kernel(*index_dev, *bt)
                                          for bt in batches])
     dev_qps = iters * b / seconds

@@ -2,7 +2,8 @@
 // K2; dense_join.cu and dense_join_tk.cu: their dense tensor-core forms on
 // the [K, T] and the [T, K] index): the five-lane timestamp order, the kind
 // clamp, the witness table's transpose, the SM count, the nibble-to-bytes
-// spread and the dense forms' cross-block fold of K2's partial maxima.
+// spread, the [K, T] kernel's key order and stage addresses, and the dense
+// forms' cross-block fold of K2's partial maxima.
 #pragma once
 
 #include <cstdint>
@@ -90,6 +91,31 @@ cudaError_t sm_count(int* sms) {
 // bits 0-3 of x -> bytes 0-3 (0 or 1 each)
 __device__ __forceinline__ uint32_t nibble_bytes(uint32_t x) {
   return ((x & 0xFu) * 0x00204081u) & 0x01010101u;
+}
+
+// The [K, T] dense kernel's stage (dense_join.cu): [128 keys][128 slots]
+// bytes, key row r at r * 128, written by TMA with the 128-byte swizzle
+// (16-byte chunk x of row r lands at chunk x ^ (r % 8)).  Its fragment
+// loads read four slots of one key row as a 32-bit word, for the key that
+// the wgmma fragment puts at position p = 32 ks + 16 h + 4 c + j of a
+// 128-key stage (k32 step ks, half h, lane % 4 = c, byte j).  Read in key
+// order, the rows 4c + j of one load differ only in bit 2 of r % 8, and
+// its 32 lanes meet on 16 banks; the query's keys are therefore placed in
+// the order kt_key_row gives, which puts c in bits 1-2 of the row, so the
+// four c of a load see four swizzle chunks and every lane its own bank.
+// kt_key_row: position p -> key row; kt_key_pos: its inverse (both keep
+// p's bits 4 and up, within a 128-key stage and across stages).
+__host__ __device__ constexpr int kt_key_row(int p) {
+  return (p & ~15) | (p & 1) | ((p >> 1) & 6) | ((p & 2) << 2);
+}
+
+__host__ __device__ constexpr int kt_key_pos(int r) {
+  return (r & ~15) | (r & 1) | ((r & 8) >> 2) | ((r & 6) << 1);
+}
+
+// the byte offset in a stage of key row r (0 .. 127), slot s (0 .. 127)
+__host__ __device__ constexpr int kt_stage_offset(int r, int s) {
+  return r * 128 + ((((s >> 4) ^ (r & 7)) << 4) | (s & 15));
 }
 
 constexpr int kFoldThreads = 128;                // the fold kernel's blocks

@@ -95,8 +95,8 @@
 // through L2/HBM; dense_join.cu holds the dense int8 tensor-core form that
 // reads each index byte once, and ops/_kernels.py::join_form picks it for
 // such rows.  __launch_bounds__(256, 2) caps the registers at 128 per
-// thread; ptxas (-Xptxas -v) reports 103 to 128 for the eight
-// instantiations and no spills.
+// thread; ptxas (-Xptxas -v) reports 80 to 128 for the twelve
+// instantiations (four of them signed) and no spills.
 //
 // Every entry point launches on the caller's stream and allocates nothing.
 // It returns the CUDA error of its SM-count query or memset if one fails,

@@ -1,10 +1,11 @@
-// The dense form of the dependency consult on Hopper (sm_90a): kernels K1d
-// and K2d, the key-overlap product on the int8 tensor cores.
+// The dense form of the dependency consult on the [K, T] index for Hopper
+// (sm_90a): kernels K1d deps_join_dense and K2d max_conflict_dense, the
+// key-overlap product on the int8 tensor cores through a TMA ring and
+// wgmma with the index as the register operand.
 //
-// K1d deps_join_dense computes what K1 (consult.cu) computes, and replaces
-// the same TPU kernel, cassandra_accord_tpu/ops/pallas_join.py::_join_kernel,
-// in its own form: a [B, K] x [K, T] product on the matrix unit with the
-// predicate applied in the epilogue,
+// K1d computes what K1 (consult.cu) computes, and replaces the same TPU
+// kernel, cassandra_accord_tpu/ops/pallas_join.py::_join_kernel, in its
+// own form: a [B, K] x [K, T] product with the predicate in the epilogue,
 //
 //   out[b, t] = (sum_k q[b, k] * inc[k, t] > 0)
 //             & ts_less(txn_id[t], before[b])
@@ -12,147 +13,189 @@
 //             & active[t] & (status[t] != INVALIDATED)
 //
 // as bool [B, T] or bit-packed [B, T/8] (bit i of byte j = slot 8j + i).
-// K2d max_conflict_dense computes what K2 computes (the XLA max half of the
-// reference's consult, device_service/kernel.py:55-59): per row, the
-// lexicographic max of per_slot[t] = ts_less(ts[t], txn_id[t]) ? txn_id[t]
-// : ts[t] over {t : product > 0 & active[t]}, zero lanes for none.  The
-// arguments are K1's and K2's: the [K, T] uint8 index (T contiguous), the
-// CSR query (offsets [B+1], cols [N]; duplicates legal, entries past
-// offsets[B] never read, a column in [-K, -1] names column c + K and any
-// other outside [0, K) is dropped), lanes, kinds, status, active.
+// K2d computes what K2 computes (the XLA max half of the reference's
+// consult, device_service/kernel.py:55-59): per row, the lexicographic max
+// of per_slot[t] = ts_less(ts[t], txn_id[t]) ? txn_id[t] : ts[t] over
+// {t : product > 0 & active[t]}, zero lanes for none.  The arguments are
+// K1's and K2's: the service's [K, T] uint8 index (T contiguous, any
+// nonzero byte a member), the CSR query (offsets [B+1], cols [N];
+// duplicates legal, entries past offsets[B] never read, a column in
+// [-K, -1] names column c + K and any other outside [0, K) is dropped),
+// lanes, kinds (read as common.cuh's clamp_kind reads them), status,
+// active.
 //
-// Why a second form.  The CSR kernels OR the incidence rows each query row
-// names, so a batch re-reads nnz*T index bytes: 4.3 GB for 64 rows of 1,024
-// keys at T = 65,536, against 134 MB for the whole [K, T] index.  Here the
-// index streams from HBM once per row tile of up to 64 query rows, and the
-// overlap is an int8 matrix product, so the bound is K*T bytes (0.040 ms at
-// that shape on an H100 at 3.35 TB/s) while the product (2*B*K*T = 17 G
-// ops, 8.7 us at 1,979 TOP/s) stays well below it.  ops/_kernels.py::
-// join_form sends a call here only when its rows name many keys each.
+// Why a dense form.  The CSR kernels OR the incidence rows each query row
+// names, so a batch re-reads nnz*T index bytes: 4.3 GB for 64 rows of
+// 1,024 keys at T = 65,536, against 134 MB for the whole index.  Here the
+// index streams from HBM once per call for up to 256 query rows, and the
+// overlap is an int8 matrix product, so the bound is K*T bytes (0.040 ms
+// at that shape on an H100 at 3.35 TB/s); the product, 2*B*K*T int8
+// operations (17 G there, 8.7 us at 1,979 TOP/s), meets the byte bound
+// only at 256 rows.  ops/_kernels.py::join_form sends a call here when its
+// rows name many keys each.
 //
-// Tiles.  M = index slots: a block takes a tile of 128 slots, 32 per warp
-// (two m16 tiles); N = query rows: 16 or 64 per block (NT = 2 or 8 n8
-// tiles), one block per row tile and tile of slots, the row tiles of one
-// slot tile neighbours in the grid so that their index reads meet in L2.
-// Blocks are persistent: about four per SM, each walking the slot tiles
-// y, y + gridDim.y, ... of its row tile, so it loads its query tile once.
-// The contraction runs over K in stages of 64 keys (two k32 steps, straight
-// code: both steps' loads can issue before the first product).
+// Design.
+// - The query.  A first kernel writes the CSR query as 0/1 bytes into
+//   scratch, [row tiles * N rows][Kq] with Kq = K rounded up to 128: a
+//   thread per column wraps a negative column once, drops one outside
+//   [0, K), finds its row by binary search in offsets and stores a 1 (so
+//   300 duplicates of a key are one 1, and nothing wraps).  Each key goes
+//   to its position in the stage's fragment order (kt_key_pos, below).
+// - The index by TMA: a 2-D tensor map over [K, T] (T % 16 == 0 and a
+//   16-byte aligned base, the map's row pitch), boxes of [128 keys][128
+//   slots] with the 128-byte swizzle, zero past K and T; the query's map,
+//   boxes of [N rows][128 keys].  The maps are built on the host by
+//   cuTensorMapEncodeTiled and kept per tensor (hopper.cuh), so the
+//   service's two index buffers and the reused scratch encode once.
+// - A ring of 3 to 8 stages, each S slots x 128 keys of the index and N x
+//   128 of the query, filled by one producer lane on "full" mbarriers
+//   (expect_tx of the stage's bytes) once both consumer warpgroups have
+//   released the stage on its "empty" one.
+// - The layout trap.  int8 wgmma reads B only K-major from shared memory,
+//   and the index stage is slot-major.  So the index is the A operand,
+//   from registers: each thread loads four 32-bit words, four slots of
+//   four key rows, and one 4x4 byte transpose (8 byte_perm) turns them
+//   into its fragment of the m64nNk32 A tile (the mma.m16n8k32 layout per
+//   warp: rows g, g + 8 of the warp's 16, keys 4c .. 4c + 3 and 16 + 4c ..
+//   of the k32 step).  A thread's four slots are rows g and g + 8 of two
+//   m64 tiles, so a warpgroup covers 128 slots with two products per k32
+//   step.  The loads go through the TMA swizzle (kt_stage_offset), and
+//   the key order of the query makes the lanes of each load meet 32
+//   banks (common.cuh; tests/test_torch_dense.py checks both in Python).
+//   The query is the B operand: K-major, 128-byte swizzle, the k32 steps
+//   32 bytes apart inside the swizzle atom.
+// - One pass for up to 256 rows: N = 16, 64 or 128 rows (by B) with the
+//   two warpgroups on the two 128-slot halves of a 256-slot stage; N = 256
+//   with both on the same 128 slots, each on 128 of the rows, so that a
+//   thread holds at most 2 x 64 accumulators.  More rows: row tiles of 256
+//   side by side in the grid, their index reads meeting in L2.  A short
+//   index (fewer slot tiles than half the SMs) takes narrower passes, so
+//   that more SMs share the call.
+// - A persistent grid: one block per SM, each walking slot tiles y, y +
+//   gridDim.y, ...; the producer runs ahead into the next tile while the
+//   consumers finish one.
+// - Epilogues: the accumulators' "> 0" bytes go to shared memory ([N][S +
+//   4]), beside the tile's slot data (the lanes and the witness byte; K2d:
+//   the lanes of max(ts, txn_id) and the active bit).  Then each warp takes
+//   rows b = warp, warp + 8, ... and each lane four consecutive slots.  The
+//   pass of one tile runs in shares between the next tile's stages, after
+//   each stage is released, so the producer keeps streaming (at N = 256
+//   right after its own tile: with 128 accumulators live the pass
+//   spilled).  A row that shares no key with the warp's slots (K2d: no
+//   active one) skips its compares.  K1d: the predicate, then one 4-byte
+//   store of the lane's four bools (a warp writes 128 contiguous bytes of
+//   a row) or one byte per two lanes packed.  K2d: the lane's masked lex
+//   max, the warp's (__reduce_max_sync lane by lane), and a running max
+//   per row in shared memory; after its last tile a block writes its rows'
+//   maxima, or its partials for the fold kernel (common.cuh) where several
+//   blocks share a row tile.
+// u8 x u8 -> s32: index bytes are 0..255 and query bytes 0/1, so a sum is
+// >= 0 and > 0 iff some product is, and stays below 2^31 (K <= 16,384).
 //
-// The layout trap, and the route taken.  The index is [K, T] with T
-// contiguous, but int8 mma.sync wants each register to hold four
-// consecutive k of one row of A (and wgmma transposes in shared memory
-// only for 16-bit types).  This kernel keeps the bytes as int8 and
-// transposes in registers (route 1): a stage is copied as it lies ([64
-// keys][128 slots], 16-byte cp.async, three stages in flight, the 16-byte
-// chunks of each key row XOR-swizzled so that the fragment loads below
-// hit 32 distinct banks); each thread then loads four 32-bit words, key
-// rows 4c .. 4c+3 at its four slots 4g .. 4g+3 (g = lane / 4, c = lane %
-// 4), and one 4x4 byte transpose (8 byte_perm) turns them into four A
-// registers, one per slot, each holding keys 4c .. 4c+3.  So a thread's
-// four slots are the A rows g, g+8 of both m16 tiles, and the accumulator
-// rows it owns in the epilogue are exactly those four consecutive slots.
-// The alternative, widening 0/1 to f16 for ldmatrix.trans, doubles the
-// shared-memory traffic and halves the tensor rate for the same answer.
-// mma.sync.m16n8k32 u8 x u8 -> s32: index bytes are 0..255 and query bytes
-// 0/1, so a sum is >= 0 and > 0 iff some product is, and cannot wrap below
-// 2^31 / 255 keys (the wrapper takes K <= 16,384).
+// Measured (PERF.md §6, H100 80GB HBM3 at 700 W, cold L2 after a 128 MB
+// write, tools_torch/kt_compare.py): at config 4 K1d 0.073 ms and K2d
+// 0.077, 57 % and 53 % of the byte bound; at the wide row 0.028 and 0.030;
+// at shape A's 256 rows 0.070 and 0.090, against the 64-row kernel's
+// 0.076 and 0.117.  Built without the predicate pass the kernel takes
+// 0.063 ms at config 4 (a plain read of the index, torch.amax, takes
+// 0.060 by the same method: tools_torch/tk_probes.py) and 0.042 at shape
+// A, and without the products 0.066 and 0.053: with one block an SM, the
+// products and the per-tile pass are not hidden under the stream.  ptxas:
+// 96 to 136 registers and no spill at N <= 64; at N = 128 and 256 the
+// 168-register cap of a 288-thread block with 2 x 64 accumulators spills
+// about 100 bytes.
 //
-// The query.  A first kernel turns the CSR query into bits, [rows][words
-// | 1] uint32 in scratch (the odd stride keeps the eight rows a warp
-// reads at once on eight banks; words = 2 per stage of 64 keys, zero past
-// K), once per call: a thread per column wraps a negative column once,
-// drops one outside [0, K), finds its row by binary search in offsets,
-// and the lanes that set bits of one word OR them along the warp (a
-// segmented scan by shuffles) so that one atomicOr per run of a word
-// reaches memory.  A bit is 0 or 1, so duplicate columns (300 of one key)
-// cannot wrap a u8 operand to 0.  Each block of the product copies its
-// rows' bits into shared memory with the first stage.  Built in every
-// block instead, the query is read once per block (hundreds of 256-KB
-// CSR reads at config 4) and the sorted columns of a row collide on one
-// shared word per warp: that took most of the call on the H100 (PERF.md
-// §6).  The B fragment of a k32 step is one shared word per row: a
-// nibble of it spread to four bytes by one multiply.
-//
-// Epilogues.  K1d: for each (row, slot) the thread owns, acc > 0 AND the
-// branchless lex compare of txn_id[t] against before[b] AND the witness
-// bit AND eligible; bool output as one 4-byte store of the thread's four
-// slots, packed output as a nibble joined with the neighbour's (lane ^ 4)
-// into one byte.  K2d: acc > 0 AND active[t], the lex max over the
-// thread's four slots, then over the eight lanes that share the rows
-// (three shuffle rounds), the four warps through shared memory, and a
-// running max per block over its slot tiles.  Across blocks each block
-// writes its rows' partials and a fold kernel, a block per row, takes
-// their lex max (a last-block fold as in K2 serialises up to 528 partials
-// per row on one block's 4 warps, and cost K2d about 0.05 ms at config
-// 4).  K1d and K2d read different matrices (live_T, key_T) and are two
-// calls, as K1 and K2 are.
-//
-// Measured (PERF.md §6, H100 80GB HBM3 at 700 W): at config 4 K1d takes
-// about 1.7x and K2d 2.0x the byte bound, and at one wide row over K = 512
-// 2.3x and 2.7x: the index streams at 1.4-1.9 TB/s, not 3.35, whichever
-// the row tile (16 or 64 rows), so neither the products nor the fragment
-// shuffling alone set the pace (where it goes is not measured).
-// __launch_bounds__(128, 4) caps registers at 128; ptxas reports no spill
-// for K1d and about 30 bytes for the 64-row K2d.
-//
-// Every entry point launches on the caller's stream (one memset node, the
+// Every entry point launches on the caller's stream (a memset node, the
 // query kernel, the product kernel and, for K2d with several blocks per
 // row tile, the fold kernel) and allocates nothing: scratch holds the
-// query bits (and K2d's partials).  It returns the CUDA
-// error of its device query, attribute call or memset if one fails,
-// cudaErrorInvalidValue for T % 16 != 0, an index not 16-byte aligned or a
-// K whose query tile does not fit shared memory, else cudaGetLastError()
-// after its launches (0 = success).
+// query bytes (and K2d's partials).  It returns cudaErrorInvalidValue for
+// K < 1, T % 16 != 0, a misaligned index or a tensor map libcuda
+// refuses, cudaErrorSharedObjectSymbolNotFound when libcuda's
+// cuTensorMapEncodeTiled cannot be found, the error of a failed device
+// query, attribute call or memset, else cudaGetLastError() after its
+// launches (0 = success).
 
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kTileT = 32 * kWarps;              // slots per tile, 32 per warp
-constexpr int kChunkK = 64;                      // keys per pipeline stage
-constexpr int kSteps = kChunkK / 32;             // k32 steps per stage
-constexpr int kStages = 3;
-constexpr int kStageBytes = kChunkK * kTileT;    // [64 keys][128 slots] u8
-constexpr int kBlocksPerSM = 4;                  // persistent grid target
+constexpr int kConsumers = 256;                  // two warpgroups
+constexpr int kThreads = kConsumers + 32;        // and the producer warp
+constexpr int kKeys = 128;                       // keys a stage
+constexpr int kBox = 128;                        // slots an index box
+constexpr int kMaxStages = 8;
+constexpr int kOvPad = 4;                        // bytes after each s_ov row
 constexpr int kQueryThreads = 256;               // the query kernel's blocks
 
 enum Mode { kDeps = 0, kMax = 1 };
 
-// the swizzle of key row r's 16-byte chunks inside a stage (bits 1-2 of
-// the chunk index from bits 2-3 of the row): the fragment loads of one
-// instruction (rows 4c + j, words 8w + g) then fall on 32 banks
-__device__ __forceinline__ int swizzle(int r) { return ((r >> 2) & 3) << 1; }
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;                  // 0: zero-fill, no read
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(n));
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
+// d[64 x N] (+)= a[64 x 32] * b[32 x N], u8 x u8 -> s32: A from registers
+// (per warp the mma.m16n8k32 fragment of its 16 rows: a[0] row g, keys
+// 4c .. 4c + 3; a[1] row g + 8; a[2], a[3] the same rows, keys 16 + 4c ..),
+// B K-major in shared memory; scale_d == 0 starts the sum afresh.  The
+// accumulator of thread (warp w of the warpgroup, lane l), register
+// 4j + 2h + e, is row 16w + l/4 + 8h, column 8j + 2(l%4) + e.
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void wgmma_ru8(int32_t* d, const uint32_t (&a)[4],
+                                          uint64_t b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ru8<16>(int32_t* d, const uint32_t (&a)[4],
+                                               uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.u8.u8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
-// d += a (16x32 u8, row) * b (32x8 u8, col)
-__device__ __forceinline__ void mma_u8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+template <>
+__device__ __forceinline__ void wgmma_ru8<64>(int32_t* d, const uint32_t (&a)[4],
+                                               uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.u8.u8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ru8<128>(int32_t* d, const uint32_t (&a)[4],
+                                               uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.u8.u8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
 // r[j] = bytes (slot 0..3) of key row j  ->  a[i] = bytes (key 0..3) of slot i
@@ -168,387 +211,436 @@ __device__ __forceinline__ void transpose4x4(const uint32_t (&r)[4],
   a[3] = __byte_perm(t2, t3, 0x7632);
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
-}
-
-// qbits[row * stride + (c >> 5)] |= 1 << (c & 31) for every column c of the
-// CSR query (entries offsets[0] .. offsets[B] of cols; a thread per entry
-// of the n_cols the caller passed), qbits zeroed before.
-__global__ void __launch_bounds__(kQueryThreads)
-query_bits_kernel(const int32_t* __restrict__ offsets,
-                  const int32_t* __restrict__ cols, int B, int K, int n_cols,
-                  int stride, uint32_t* __restrict__ qbits) {
-  const int lane = threadIdx.x & 31;
-  const int j = blockIdx.x * kQueryThreads + threadIdx.x;
-  const int lo = __ldg(offsets);
-  const int hi = __ldg(offsets + B);
-  int word = -1;
-  uint32_t bits = 0;
-  if (j < n_cols && j >= lo && j < hi) {
-    const int c = __ldg(cols + j);
-    const int w = c < 0 ? c + K : c;             // wrapped once, as in JAX
-    if (w >= 0 && w < K) {
-      int r0 = 0, r1 = B;                        // offsets[r0] <= j < offsets[r1]
-      while (r1 - r0 > 1) {
-        const int mid = (r0 + r1) >> 1;
-        if (__ldg(offsets + mid) <= j) r0 = mid; else r1 = mid;
-      }
-      word = r0 * stride + (w >> 5);
-      bits = 1u << (w & 31);
-    }
-  }
-  // OR along runs of lanes with the same word; only bits of equal words
-  // ever meet, so any order of columns is right, sorted ones cheap
+// out[i] = the keys at fragment positions 32 ks + 16 h + 4 c .. + 3 of slot
+// sl + i of an index box (the thread's four slots)
+__device__ __forceinline__ void kt_fragment(const uint8_t* box, int ks, int h,
+                                            int c, int sl, uint32_t (&out)[4]) {
+  uint32_t r[4];
 #pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int nw = __shfl_up_sync(kFull, word, d);
-    const uint32_t nb = __shfl_up_sync(kFull, bits, d);
-    if (lane >= d && nw == word) bits |= nb;
+  for (int j = 0; j < 4; ++j) {
+    const int row = kt_key_row(32 * ks + 16 * h + 4 * c + j);
+    r[j] = *reinterpret_cast<const uint32_t*>(box + kt_stage_offset(row, sl));
   }
-  const int next = __shfl_down_sync(kFull, word, 1);
-  if (word >= 0 && (lane == 31 || next != word)) atomicOr(qbits + word, bits);
+  transpose4x4(r, out);
 }
 
-// Grid: x = row tiles of 8*NT query rows, y = persistent blocks walking
-// the slot tiles y, y + gridDim.y, ...  T % 16 == 0 and a 16-byte aligned
-// index (dense_launch refuses others), so every 16-byte piece of a stage
-// lies wholly inside or wholly past T.
-// qbits: the query bits of all row tiles, [gridDim.x * 8 * NT][stride].
-// partial (kMax, gridDim.y > 1): [B, gridDim.y, 5] int32 for fold_kernel.
-template <int kMode, int NT>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-dense_kernel(const uint8_t* __restrict__ inc,      // [K, T]
-             const int32_t* __restrict__ ts,       // [T, 5]  (K2d)
-             const int32_t* __restrict__ txn_id,   // [T, 5]
-             const int8_t* __restrict__ kind,      // [T]     (K1d)
-             const int8_t* __restrict__ status,    // [T]     (K1d)
-             const uint8_t* __restrict__ active,   // [T]
-             const int32_t* __restrict__ before,   // [B, 5]  (K1d)
-             const int8_t* __restrict__ qkind,     // [B]     (K1d)
-             const uint32_t* __restrict__ qbits_all,  // see above
-             unsigned long long wit_bits, int n_kinds, int invalidated,
-             int B, int T, int K, int packed,
-             int32_t* __restrict__ partial, void* __restrict__ out) {
-  constexpr int kRowsT = 8 * NT;
-  extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* const stages = smem;
-  uint32_t* const qbits = reinterpret_cast<uint32_t*>(smem + kStages * kStageBytes);
-  __shared__ int32_t s_before[kRowsT][kLanes];
-  __shared__ int32_t s_qkind[kRowsT];
-  __shared__ int32_t s_part[kWarps][kRowsT][kLanes];
-  __shared__ int32_t s_best[kRowsT][kLanes];
+// The shape of one instantiation: N query rows a tile, S slots a stage.
+template <int N>
+struct KtShape {
+  static constexpr bool kSplit = N > 128;          // warpgroups split the rows
+  static constexpr int kNw = kSplit ? N / 2 : N;   // rows of one wgmma
+  static constexpr int kSlots = kSplit ? kBox : 2 * kBox;
+  static constexpr int kAcc = kNw / 2;             // registers of one wgmma
+  static constexpr int kOvStride = kSlots + kOvPad;
+  // a stage: the index boxes [128 keys][128 slots], then the query box
+  // [N rows][128 keys]
+  static constexpr int kStage = (kSlots + N) * kKeys;
+};
+
+// the shared memory after the ring: s_ov [N][S + 4] bytes, s_slot [6][S],
+// s_before [N][5], s_qkind [N], s_best [N][5] int32, then the full and
+// empty barriers
+__host__ __device__ constexpr size_t tail_bytes(int n, int slots) {
+  return round16(static_cast<size_t>(n) * (slots + kOvPad)) +
+         sizeof(int32_t) * (kLanes + 1) * slots +
+         round16(sizeof(int32_t) * n * (2 * kLanes + 1)) +
+         2 * kMaxStages * sizeof(uint64_t);
+}
+
+// q[row * kq + position of key c] = 1 for every column c of the CSR query
+// (entries offsets[0] .. offsets[B] of cols; a thread per entry of the
+// n_cols the caller passed), q zeroed before
+__global__ void __launch_bounds__(kQueryThreads)
+query_bytes_kernel(const int32_t* __restrict__ offsets,
+                   const int32_t* __restrict__ cols, int B, int K, int n_cols,
+                   long long kq, uint8_t* __restrict__ q) {
+  const int j = blockIdx.x * kQueryThreads + threadIdx.x;
+  if (j >= n_cols || j < __ldg(offsets) || j >= __ldg(offsets + B)) return;
+  const int c = __ldg(cols + j);
+  const int w = c < 0 ? c + K : c;               // wrapped once, as in JAX
+  if (w < 0 || w >= K) return;
+  int r0 = 0, r1 = B;                            // offsets[r0] <= j < offsets[r1]
+  while (r1 - r0 > 1) {
+    const int mid = (r0 + r1) >> 1;
+    if (__ldg(offsets + mid) <= j) r0 = mid; else r1 = mid;
+  }
+  q[r0 * kq + (w & ~(kKeys - 1)) + kt_key_pos(w & (kKeys - 1))] = 1;
+}
+
+// Grid: x = row tiles of N query rows, y = persistent blocks walking the
+// slot tiles y, y + gridDim.y, ...  partial (K2d, gridDim.y > 1): [B,
+// gridDim.y, 5] int32 for fold_kernel.
+template <int kMode, int N>
+__global__ void __launch_bounds__(kThreads, 1)
+kt_kernel(const __grid_constant__ CUtensorMap imap,   // [K, T] u8
+          const __grid_constant__ CUtensorMap qmap,   // [rows, Kq] u8
+          const int32_t* __restrict__ ts,             // [T, 5]  (K2d)
+          const int32_t* __restrict__ txn_id,         // [T, 5]
+          const int8_t* __restrict__ kind,            // [T]     (K1d)
+          const int8_t* __restrict__ status,          // [T]     (K1d)
+          const uint8_t* __restrict__ active,         // [T]
+          const int32_t* __restrict__ before,         // [B, 5]  (K1d)
+          const int8_t* __restrict__ qkind,           // [B]     (K1d)
+          unsigned long long wit_bits, int n_kinds, int invalidated, int B,
+          int T, int K, int packed, int stages,
+          int32_t* __restrict__ partial, void* __restrict__ out) {
+  using Sh = KtShape<N>;
+  constexpr int kS = Sh::kSlots;
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzle atoms must sit on 1024-byte boundaries
+  uint8_t* const smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* const ov = smem + static_cast<size_t>(stages) * Sh::kStage;
+  int32_t* const s_slot =
+      reinterpret_cast<int32_t*>(ov + round16(static_cast<size_t>(N) * Sh::kOvStride));
+  int32_t* const s_before = s_slot + (kLanes + 1) * kS;
+  int32_t* const s_qkind = s_before + N * kLanes;
+  int32_t* const s_best = s_qkind + N;
+  const uint32_t full0 = smem_addr(ov + tail_bytes(N, kS) - 2 * kMaxStages * sizeof(uint64_t));
+  const uint32_t empty0 = full0 + kMaxStages * sizeof(uint64_t);
+  const uint32_t ring0 = smem_addr(smem);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int c = lane & 3;
-  const int n_chunks = max(1, (K + kChunkK - 1) / kChunkK);
-  const int stride = (n_chunks * kSteps) | 1;    // query words per row
-  const int n_tiles = (T + kTileT - 1) / kTileT;
-  const int b0 = blockIdx.x * kRowsT;
-  const int nrows = min(kRowsT, B - b0);
+  const int nk = (K + kKeys - 1) / kKeys;
+  const int n_tiles = (T + kS - 1) / kS;
+  const int b0 = blockIdx.x * N;
+  const int nrows = min(N, B - b0);
   const int my_tiles = (n_tiles - 1 - static_cast<int>(blockIdx.y)) /
                        static_cast<int>(gridDim.y) + 1;
-  const int total = my_tiles * n_chunks;
 
-  // stage `it` of this block's walk: key rows k0 .. k0+63 of slot tile
-  // `tile`, zero-filled past K and T
-  auto stage_load = [&](int it) {
-    const int tile = blockIdx.y + (it / n_chunks) * gridDim.y;
-    const int t0 = tile * kTileT;
-    const int k0 = (it % n_chunks) * kChunkK;
-    uint8_t* buf = stages + (it % kStages) * kStageBytes;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full0 + 8 * s, 1);                // the producer's expect_tx
+      mbar_init(empty0 + 8 * s, kConsumers / 32); // a lane of each warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = tid; i < N * kLanes; i += kThreads) {
+    s_before[i] = kMode == kDeps && i / kLanes < nrows
+        ? __ldg(before + static_cast<size_t>(b0) * kLanes + i) : 0;
+    s_best[i] = 0;
+  }
+  for (int i = tid; i < N; i += kThreads) {
+    s_qkind[i] = kMode == kDeps && i < nrows
+        ? clamp_kind(__ldg(qkind + b0 + i), n_kinds) : 0;
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {                  // the producer
+    if (lane == 0) {
+      const int total = my_tiles * nk;
+      for (int it = 0; it < total; ++it) {
+        const int s = it % stages;
+        mbar_wait(empty0 + 8 * s, ((it / stages) & 1) ^ 1);
+        mbar_expect_tx(full0 + 8 * s, Sh::kStage);
+        const int tile = blockIdx.y + (it / nk) * gridDim.y;
+        const int k0 = (it % nk) * kKeys;
+        const uint32_t dst = ring0 + s * Sh::kStage;
 #pragma unroll
-    for (int p = 0; p < kChunkK * 8 / kThreads; ++p) {   // 16-byte pieces
-      const int q = tid + p * kThreads;
-      const int r = q >> 3;
-      const int ch = q & 7;
-      const int k = k0 + r;
-      const int t = t0 + ch * 16;
-      uint8_t* dst = buf + r * kTileT + ((ch ^ swizzle(r)) << 4);
-      const bool ok = k < K && t < T;
-      cp_async16(dst, ok ? inc + static_cast<size_t>(k) * T + t : inc, ok);
+        for (int h = 0; h < kS / kBox; ++h) {
+          tma_load(dst + h * kBox * kKeys, &imap, tile * kS + h * kBox, k0,
+                   full0 + 8 * s);
+        }
+        tma_load(dst + kS * kKeys, &qmap, k0, b0, full0 + 8 * s);
+      }
     }
-  };
-
-  // the block's query bits ride with the first stage
-  for (int i = tid; i < kRowsT * stride; i += kThreads) {
-    cp_async4(qbits + i, qbits_all + static_cast<size_t>(b0) * stride + i);
-  }
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < total) stage_load(s);
-    cp_async_commit();
-  }
-  if constexpr (kMode == kDeps) {
-    for (int i = tid; i < kRowsT * kLanes; i += kThreads) {
-      const int r = i / kLanes;
-      s_before[r][i % kLanes] =
-          r < nrows ? __ldg(before + static_cast<size_t>(b0) * kLanes + i) : 0;
-    }
-    if (tid < kRowsT) {
-      s_qkind[tid] = tid < nrows ? clamp_kind(__ldg(qkind + b0 + tid), n_kinds) : 0;
-    }
-  } else {
-    for (int i = tid; i < kRowsT * kLanes; i += kThreads) (&s_best[0][0])[i] = 0;
+    return;
   }
 
-  int acc[2][NT][4];
+  // the consumers: warpgroup wg takes the index box at slot0 of a stage
+  // and the query rows from row0; a thread, slots sl .. sl + 3 of the box
+  const int wg = warp >> 2;
+  const int wl = warp & 3;
+  const int g = lane >> 2;
+  const int c = lane & 3;
+  const int slot0 = Sh::kSplit ? 0 : wg * kBox;
+  const int row0 = Sh::kSplit ? wg * Sh::kNw : 0;
+  const int sl = 32 * wl + 4 * g;
+  int32_t acc[2][Sh::kAcc];
 #pragma unroll
   for (int m = 0; m < 2; ++m)
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0;
+    for (int i = 0; i < Sh::kAcc; ++i) acc[m][i] = 0;
+  const uint64_t wit_by_kind = transpose8(wit_bits);   // byte k: column k
+  uint8_t* const out8 = static_cast<uint8_t*>(out);
 
-  for (int it = 0; it < total; ++it) {
-    cp_async_wait<kStages - 2>();                // stage `it` has landed
-    __syncthreads();                             // ... for every thread; and
-    if (it + kStages - 1 < total) stage_load(it + kStages - 1);  // its
-    cp_async_commit();                           // buffer of it-1 is free
-    const uint8_t* buf = stages + (it % kStages) * kStageBytes;
-    const int chunk = it % n_chunks;
-#pragma unroll
-    for (int ks = 0; ks < kSteps; ++ks) {
-      const int qw = chunk * kSteps + ks;        // query word of this step
-      uint32_t q[NT];
-#pragma unroll
-      for (int n = 0; n < NT; ++n) q[n] = qbits[(8 * n + g) * stride + qw];
-      uint32_t lo[4], hi[4];
-      {
-        uint32_t r[4];
-        const int word = ((g & 3) << 2);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int row = ks * 32 + 4 * c + j;
-          r[j] = *reinterpret_cast<const uint32_t*>(
-              buf + row * kTileT + (((2 * warp + (g >> 2)) ^ swizzle(row)) << 4) + word);
-        }
-        transpose4x4(r, lo);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int row = ks * 32 + 16 + 4 * c + j;
-          r[j] = *reinterpret_cast<const uint32_t*>(
-              buf + row * kTileT + (((2 * warp + (g >> 2)) ^ swizzle(row)) << 4) + word);
-        }
-        transpose4x4(r, hi);
-      }
-      // m16 tile 0: rows g, g+8 = slots 4g, 4g+1; tile 1: slots 4g+2, 4g+3
-      const uint32_t a0[4] = {lo[0], lo[1], hi[0], hi[1]};
-      const uint32_t a1[4] = {lo[2], lo[3], hi[2], hi[3]};
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const uint32_t b0f = nibble_bytes(q[n] >> (4 * c));
-        const uint32_t b1f = nibble_bytes(q[n] >> (16 + 4 * c));
-        mma_u8(acc[0][n], a0, b0f, b1f);
-        mma_u8(acc[1][n], a1, b0f, b1f);
-      }
-    }
-    if (chunk != n_chunks - 1) continue;
-
-    // the epilogue of slot tile `tile`: this thread's slots s0 .. s0+3 and
-    // query rows 8n + 2c + {0, 1}; (slot i, row e) sits in
-    // acc[i / 2][n][2 * (i % 2) + e]
-    const int tile = blockIdx.y + (it / n_chunks) * gridDim.y;
-    const int s0 = tile * kTileT + 32 * warp + 4 * g;
-    if constexpr (kMode == kDeps) {
-      const uint64_t wit_by_kind = transpose8(wit_bits);   // byte k: column k
-      int32_t lanes[4][kLanes];
-      uint32_t wit[4];
+  // The predicate pass of a tile runs while the next tile's stages
+  // stream in: its overlap bytes wait in s_ov and its slot data in s_slot
+  // (six words per slot, word-major: K1d the five lanes and the witness
+  // byte, 0 where the slot is not eligible; K2d the five lanes of the
+  // slot's max(ts, txn_id) and whether it is active), and each stage's
+  // consumers take a share of the pass's items after releasing the stage.
+  // This warp's items: rows warp, warp + 8, ... (rows_w of them) of each
+  // 128-slot group, a lane's four slots at a time.  At N = 256 the 128
+  // accumulators a thread holds through the stages leave no registers for
+  // the pass (it spilled, and the kernel slowed by 15 %), so that tile
+  // shape runs each pass right after its own tile instead.
+  constexpr bool kInterleave = !Sh::kSplit;
+  const int rows_w = nrows > warp ? (nrows - warp + 7) / 8 : 0;
+  const int n_items = (kS / 128) * rows_w;
+  int pend = -1;                                 // the tile pending in s_ov
+  int done = 0;                                  // its items done here
+  auto run_items = [&](int upto) {
+    for (; done < upto; ++done) {
+      const int gq = done / rows_w;
+      const int row = warp + 8 * (done - gq * rows_w);
+      const int i0 = gq * 128 + 4 * lane;        // the lane's slots in the tile
+      const int s0 = pend * kS + i0;
+      const uint32_t o = *reinterpret_cast<const uint32_t*>(
+          ov + row * Sh::kOvStride + i0);
+      const uint4 extra = *reinterpret_cast<const uint4*>(s_slot + kLanes * kS + i0);
+      const uint32_t flags[4] = {extra.x, extra.y, extra.z, extra.w};
+      uint32_t cand = 0;
+      const int qk = kMode == kDeps ? s_qkind[row] : 0;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int t = s0 + i;
-        const bool v = t < T;
+        const bool f = kMode == kDeps ? ((flags[i] >> qk) & 1u) != 0 : flags[i] != 0;
+        cand |= static_cast<uint32_t>(((o >> (8 * i)) & 0xFFu) != 0 && f) << i;
+      }
+      const bool any = __any_sync(kFull, cand != 0);
+      int32_t v[4][kLanes];
+      if (any) {
 #pragma unroll
         for (int l = 0; l < kLanes; ++l) {
-          lanes[i][l] = v ? __ldg(txn_id + static_cast<size_t>(t) * kLanes + l) : 0;
+          const int4 w = *reinterpret_cast<const int4*>(s_slot + l * kS + i0);
+          v[0][l] = w.x;
+          v[1][l] = w.y;
+          v[2][l] = w.z;
+          v[3][l] = w.w;
         }
+      }
+      if constexpr (kMode == kDeps) {
+        uint32_t bits = 0;
+        if (any) {
+          int32_t bound[kLanes];
+#pragma unroll
+          for (int l = 0; l < kLanes; ++l) bound[l] = s_before[row * kLanes + l];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            bits |= static_cast<uint32_t>(((cand >> i) & 1u) &&
+                                          lex_less(v[i], bound)) << i;
+          }
+        }
+        const size_t b = static_cast<size_t>(b0 + row);
+        if (packed) {
+          const uint32_t high = __shfl_xor_sync(kFull, bits, 1);   // slots +4
+          if ((lane & 1) == 0 && s0 < T) {
+            out8[b * (T / 8) + s0 / 8] = static_cast<uint8_t>(bits | (high << 4));
+          }
+        } else if (s0 < T) {
+          *reinterpret_cast<uint32_t*>(out8 + b * T + s0) = nibble_bytes(bits);
+        }
+      } else if (any) {
+        int32_t mine[kLanes] = {-1, -1, -1, -1, -1};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) take_max(mine, v[i], (cand >> i) & 1u);
+        int32_t best[kLanes];
+        warp_lex_max(mine, best);
+        if (lane == 0) take_max(s_best + row * kLanes, best);   // row's warp
+      }
+    }
+  };
+
+  int it = 0;
+  for (int j = 0; j < my_tiles; ++j) {
+    const int tile = blockIdx.y + j * gridDim.y;
+    const int share = (n_items + nk - 1) / nk;   // pending items a stage
+    for (int kc = 0; kc < nk; ++kc, ++it) {
+      const int s = it % stages;
+      mbar_wait(full0 + 8 * s, (it / stages) & 1);
+      const uint8_t* box = smem + static_cast<size_t>(s) * Sh::kStage + slot0 * kKeys;
+      const uint32_t q0 = ring0 + s * Sh::kStage + (kS + row0) * kKeys;
+      // the stage's A fragments: k32 step, m64 tile (slots sl + 2m, + 1)
+      uint32_t a[kKeys / 32][2][4];
+#pragma unroll
+      for (int ks = 0; ks < kKeys / 32; ++ks) {
+        uint32_t lo[4], hi[4];
+        kt_fragment(box, ks, 0, c, sl, lo);
+        kt_fragment(box, ks, 1, c, sl, hi);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          a[ks][m][0] = lo[2 * m];
+          a[ks][m][1] = lo[2 * m + 1];
+          a[ks][m][2] = hi[2 * m];
+          a[ks][m][3] = hi[2 * m + 1];
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m) fence_regs<Sh::kAcc>(acc[m]);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kKeys / 32; ++ks) {
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          wgmma_ru8<Sh::kNw>(acc[m], a[ks][m], sw128_desc(q0 + ks * 32),
+                             (kc | ks) != 0);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int m = 0; m < 2; ++m) fence_regs<Sh::kAcc>(acc[m]);
+      if (lane == 0) mbar_arrive(empty0 + 8 * s);   // this warp is done
+      if (kInterleave && pend >= 0) run_items(min(n_items, (kc + 1) * share));
+    }
+    if (pend >= 0) run_items(n_items);
+    consumers_sync();                            // s_ov and s_slot are free
+
+    // the tile's overlap as bytes: s_ov[row][slot] = product > 0; the
+    // thread's rows row0 + 8jn + 2c + e, its slots sl + 2m + h
+#pragma unroll
+    for (int jn = 0; jn < Sh::kNw / 8; ++jn) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        uint32_t w = 0;
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            w |= static_cast<uint32_t>(acc[m][4 * jn + 2 * h + e] > 0)
+                 << (8 * (2 * m + h));
+          }
+        }
+        const int row = row0 + 8 * jn + 2 * c + e;
+        *reinterpret_cast<uint32_t*>(ov + row * Sh::kOvStride + slot0 + sl) = w;
+      }
+    }
+    // and its slot data
+    for (int i = tid; i < kS; i += kConsumers) {
+      const int t = tile * kS + i;
+      const bool v = t < T;
+      int32_t id[kLanes];
+#pragma unroll
+      for (int l = 0; l < kLanes; ++l) {
+        id[l] = v ? __ldg(txn_id + static_cast<size_t>(t) * kLanes + l) : 0;
+      }
+      if constexpr (kMode == kDeps) {
         const bool live = v && __ldg(active + t) != 0 &&
                           __ldg(status + t) != invalidated;
         const int k = v ? clamp_kind(__ldg(kind + t), n_kinds) : 0;
-        wit[i] = live ? static_cast<uint32_t>((wit_by_kind >> (8 * k)) & 0xFFu) : 0u;
-      }
-      uint8_t* out8 = static_cast<uint8_t*>(out);
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int row = 8 * n + 2 * c + e;
-          uint32_t bits = 0;
-          if (row < nrows) {
-            const int qk = s_qkind[row];
-            int32_t bound[kLanes];
-#pragma unroll
-            for (int l = 0; l < kLanes; ++l) bound[l] = s_before[row][l];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const bool dep = acc[i >> 1][n][2 * (i & 1) + e] > 0 &&
-                               ((wit[i] >> qk) & 1u) && lex_less(lanes[i], bound);
-              bits |= static_cast<uint32_t>(dep) << i;
-            }
-          }
-          const size_t b = static_cast<size_t>(b0 + row);
-          if (packed) {
-            const uint32_t high = __shfl_xor_sync(kFull, bits, 4);   // slots +4
-            if (row < nrows && (g & 1) == 0 && s0 < T) {
-              out8[b * (T / 8) + s0 / 8] = static_cast<uint8_t>(bits | (high << 4));
-            }
-          } else if (row < nrows && s0 < T) {
-            *reinterpret_cast<uint32_t*>(out8 + b * T + s0) = nibble_bytes(bits);
-          }
-        }
-      }
-    } else {
-      int32_t vals[4][kLanes];
-      uint32_t act = 0;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = s0 + i;
-        const bool v = t < T;
-        int32_t e[kLanes], id[kLanes];
+        for (int l = 0; l < kLanes; ++l) s_slot[l * kS + i] = id[l];
+        s_slot[kLanes * kS + i] =
+            live ? static_cast<int32_t>((wit_by_kind >> (8 * k)) & 0xFFu) : 0;
+      } else {
+        int32_t e[kLanes];
 #pragma unroll
         for (int l = 0; l < kLanes; ++l) {
           e[l] = v ? __ldg(ts + static_cast<size_t>(t) * kLanes + l) : 0;
-          id[l] = v ? __ldg(txn_id + static_cast<size_t>(t) * kLanes + l) : 0;
         }
         const bool use_id = lex_less(e, id);
 #pragma unroll
-        for (int l = 0; l < kLanes; ++l) vals[i][l] = use_id ? id[l] : e[l];
-        if (v && __ldg(active + t) != 0) act |= 1u << i;
-      }
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int row = 8 * n + 2 * c + e;
-          int32_t mine[kLanes] = {-1, -1, -1, -1, -1};
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            take_max(mine, vals[i],
-                     acc[i >> 1][n][2 * (i & 1) + e] > 0 && ((act >> i) & 1u));
-          }
-          // over the eight lanes that hold the same rows (same c)
-#pragma unroll
-          for (int off = 4; off < 32; off <<= 1) {
-            int32_t other[kLanes];
-#pragma unroll
-            for (int l = 0; l < kLanes; ++l) {
-              other[l] = __shfl_xor_sync(kFull, mine[l], off);
-            }
-            take_max(mine, other);
-          }
-          if (g == 0 && row < nrows) {
-#pragma unroll
-            for (int l = 0; l < kLanes; ++l) s_part[warp][row][l] = mine[l];
-          }
-        }
-      }
-      __syncthreads();
-      if (tid < nrows) {
-        int32_t best[kLanes];
-#pragma unroll
-        for (int l = 0; l < kLanes; ++l) best[l] = s_best[tid][l];
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) take_max(best, s_part[w][tid]);
-#pragma unroll
-        for (int l = 0; l < kLanes; ++l) s_best[tid][l] = best[l];
+        for (int l = 0; l < kLanes; ++l) s_slot[l * kS + i] = use_id ? id[l] : e[l];
+        s_slot[kLanes * kS + i] = v && __ldg(active + t) != 0;
       }
     }
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[m][n][e] = 0;
+    consumers_sync();                            // both are in place
+    pend = tile;
+    done = 0;
+    if constexpr (!kInterleave) run_items(n_items);
   }
-  cp_async_wait<0>();
+  if (pend >= 0) run_items(n_items);
   if constexpr (kMode == kMax) {
-    __syncthreads();                             // s_best is final
-    if (tid < nrows) {
-      const size_t b = static_cast<size_t>(b0 + tid);
+    consumers_sync();                            // s_best is final
+    for (int r = tid; r < nrows; r += kConsumers) {
+      const size_t b = static_cast<size_t>(b0 + r);
       int32_t* dst = gridDim.y == 1
           ? static_cast<int32_t*>(out) + b * kLanes
           : partial + (b * gridDim.y + blockIdx.y) * kLanes;
 #pragma unroll
-      for (int l = 0; l < kLanes; ++l) dst[l] = s_best[tid][l];
+      for (int l = 0; l < kLanes; ++l) dst[l] = s_best[r * kLanes + l];
     }
   }
 }
 
-struct DenseGeometry {
+struct KtGeometry {
   dim3 grid;
   size_t smem;                                   // dynamic shared bytes
-  int nt;                                        // n8 tiles of query rows
-  int stride;                                    // query words per row
-  long long qwords;                              // query bits in scratch
+  int n;                                         // query rows a tile
+  int slots;                                     // slots a stage
+  int stages;
+  long long kq;                                  // query bytes a row
+  long long qbytes;                              // query bytes in scratch
 };
 
-// NT = 2 (16 rows) for B <= 16, else 8 (64 rows); row tiles x persistent
-// blocks, about kBlocksPerSM blocks on every SM in all.
-cudaError_t dense_geometry(int B, int T, int K, DenseGeometry* g) {
+template <int N>
+constexpr int kt_slots() { return KtShape<N>::kSlots; }
+
+template <int N>
+constexpr size_t kt_stage() { return KtShape<N>::kStage; }
+
+// N = 16, 64, 128 or 256 rows by B (more rows: several row tiles of 256),
+// fewer while the grid would leave more than half the SMs idle (a short
+// index: its passes meet in L2); as many stages as shared memory holds, up
+// to kMaxStages; row tiles x persistent blocks, about one block on every
+// SM in all.
+cudaError_t kt_geometry(int B, int T, int K, KtGeometry* g) {
   int sms = 0;
   cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
-  const int nt = B <= 16 ? 2 : 8;
-  const int row_tiles = (B + 8 * nt - 1) / (8 * nt);
-  const int n_tiles = (T + kTileT - 1) / kTileT;
-  const int per = max(1, kBlocksPerSM * sms / row_tiles);
-  const int gy = min(min(n_tiles, per), 65535);
-  const int n_chunks = max(1, (K + kChunkK - 1) / kChunkK);
-  const int stride = (n_chunks * kSteps) | 1;
-  const size_t smem = static_cast<size_t>(kStages) * kStageBytes +
-                      static_cast<size_t>(8 * nt) * stride * sizeof(uint32_t);
+  int n = B <= 16 ? 16 : B <= 64 ? 64 : B <= 128 ? 128 : 256;
+  for (;;) {
+    const long long s = n > 128 ? kBox : 2 * kBox;
+    const long long blocks = (B + n - 1) / n * ((T + s - 1) / s);
+    if (n == 16 || 2 * blocks >= sms) break;
+    n = n == 256 ? 128 : n == 128 ? 64 : 16;
+  }
+  const int slots = n == 16 ? kt_slots<16>() : n == 64 ? kt_slots<64>()
+                  : n == 128 ? kt_slots<128>() : kt_slots<256>();
+  const size_t stage = n == 16 ? kt_stage<16>() : n == 64 ? kt_stage<64>()
+                     : n == 128 ? kt_stage<128>() : kt_stage<256>();
+  const int row_tiles = (B + n - 1) / n;
+  const int n_tiles = (T + slots - 1) / slots;
+  const int gy = min(min(n_tiles, max(1, sms / row_tiles)), 65535);
   int dev = 0, optin = 0;
   err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  // the static arrays of the 64-row instantiation, at most
-  constexpr size_t kStatic = sizeof(int32_t) * (64 * kLanes + 64 +
-                                                kWarps * 64 * kLanes + 64 * kLanes) + 16;
-  if (smem + kStatic > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
-  *g = DenseGeometry{dim3(row_tiles, gy), smem, nt, stride,
-                     static_cast<long long>(row_tiles) * 8 * nt * stride};
+  const size_t fixed = tail_bytes(n, slots) + 1024;      // + the alignment
+  if (static_cast<size_t>(optin) < fixed + 2 * stage) return cudaErrorInvalidValue;
+  const size_t fit = (static_cast<size_t>(optin) - fixed) / stage;
+  const int stages = fit < kMaxStages ? static_cast<int>(fit) : kMaxStages;
+  const long long kq = (static_cast<long long>(K) + kKeys - 1) / kKeys * kKeys;
+  *g = KtGeometry{dim3(row_tiles, gy), fixed + stages * stage, n, slots, stages,
+                  kq, static_cast<long long>(row_tiles) * n * kq};
   return cudaSuccess;
 }
 
-// scratch: the query bits, then (K2d, several blocks per row tile) the
+// scratch: the query bytes, then (K2d, several blocks per row tile) the
 // partials
-long long scratch_ints(const DenseGeometry& g, int kMode, int B) {
-  long long n = g.qwords;
+long long scratch_ints(const KtGeometry& g, int kMode, int B) {
+  long long n = g.qbytes / static_cast<long long>(sizeof(int32_t));
   if (kMode == kMax && g.grid.y > 1) {
     n += static_cast<long long>(B) * g.grid.y * kLanes;
   }
   return n;
 }
 
-template <int kMode, int NT>
-cudaError_t dense_run(const DenseGeometry& g, cudaStream_t s, const void* inc,
-                      const void* ts, const void* txn_id, const void* kind,
-                      const void* status, const void* active,
-                      const void* before, const void* qkind,
-                      unsigned long long wit_bits, int n_kinds,
-                      int invalidated, int B, int T, int K, int packed,
-                      void* scratch, void* out) {
-  auto* kernel = dense_kernel<kMode, NT>;
+template <int kMode, int N>
+cudaError_t kt_run(const KtGeometry& g, cudaStream_t s, const CUtensorMap& imap,
+                   const CUtensorMap& qmap, const void* ts, const void* txn_id,
+                   const void* kind, const void* status, const void* active,
+                   const void* before, const void* qkind,
+                   unsigned long long wit_bits, int n_kinds, int invalidated,
+                   int B, int T, int K, int packed, int32_t* partial,
+                   void* out) {
+  auto* kernel = kt_kernel<kMode, N>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(g.smem));
   if (err != cudaSuccess) return err;
-  uint32_t* qbits = static_cast<uint32_t*>(scratch);
   kernel<<<g.grid, kThreads, g.smem, s>>>(
-      static_cast<const uint8_t*>(inc), static_cast<const int32_t*>(ts),
+      imap, qmap, static_cast<const int32_t*>(ts),
       static_cast<const int32_t*>(txn_id), static_cast<const int8_t*>(kind),
       static_cast<const int8_t*>(status), static_cast<const uint8_t*>(active),
       static_cast<const int32_t*>(before), static_cast<const int8_t*>(qkind),
-      qbits, wit_bits, n_kinds, invalidated, B, T, K, packed,
-      reinterpret_cast<int32_t*>(qbits + g.qwords), out);
+      wit_bits, n_kinds, invalidated, B, T, K, packed, g.stages, partial, out);
   return cudaGetLastError();
 }
 
-// memset (query bits), the query kernel, the product kernel, the fold
+// memset (query bytes), the query kernel, the tensor maps, the product
+// kernel, the fold
 template <int kMode>
 cudaError_t dense_launch(int B, int T, int K, int n_cols, cudaStream_t s,
                          const void* inc, const void* ts, const void* txn_id,
@@ -558,29 +650,38 @@ cudaError_t dense_launch(int B, int T, int K, int n_cols, cudaStream_t s,
                          const void* qkind, unsigned long long wit_bits,
                          int n_kinds, int invalidated, int packed,
                          void* scratch, void* out) {
-  if (T % 16 != 0 || (reinterpret_cast<uintptr_t>(inc) & 15) != 0) {
+  if (K < 1 || T % 16 != 0 || (reinterpret_cast<uintptr_t>(inc) & 15) != 0) {
     return cudaErrorInvalidValue;
   }
-  DenseGeometry g;
-  cudaError_t err = dense_geometry(B, T, K, &g);
+  KtGeometry g;
+  cudaError_t err = kt_geometry(B, T, K, &g);
   if (err != cudaSuccess) return err;
-  err = cudaMemsetAsync(scratch, 0, g.qwords * sizeof(uint32_t), s);
+  uint8_t* const q = static_cast<uint8_t*>(scratch);
+  err = cudaMemsetAsync(q, 0, g.qbytes, s);
   if (err != cudaSuccess) return err;
   if (n_cols > 0) {
-    query_bits_kernel<<<(n_cols + kQueryThreads - 1) / kQueryThreads,
-                        kQueryThreads, 0, s>>>(
+    query_bytes_kernel<<<(n_cols + kQueryThreads - 1) / kQueryThreads,
+                         kQueryThreads, 0, s>>>(
         static_cast<const int32_t*>(offsets), static_cast<const int32_t*>(cols),
-        B, K, n_cols, g.stride, static_cast<uint32_t*>(scratch));
+        B, K, n_cols, g.kq, q);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  auto* run = g.nt == 2 ? dense_run<kMode, 2> : dense_run<kMode, 8>;
-  err = run(g, s, inc, ts, txn_id, kind, status, active, before, qkind,
-            wit_bits, n_kinds, invalidated, B, T, K, packed, scratch, out);
+  CUtensorMap imap, qmap;
+  err = encode_map(&imap, inc, K, T, kKeys, kBox);
+  if (err != cudaSuccess) return err;
+  err = encode_map(&qmap, q, static_cast<long long>(g.grid.x) * g.n, g.kq, g.n,
+                   kKeys);
+  if (err != cudaSuccess) return err;
+  int32_t* const partial = reinterpret_cast<int32_t*>(q + g.qbytes);
+  auto* run = g.n == 16 ? kt_run<kMode, 16>
+            : g.n == 64 ? kt_run<kMode, 64>
+            : g.n == 128 ? kt_run<kMode, 128> : kt_run<kMode, 256>;
+  err = run(g, s, imap, qmap, ts, txn_id, kind, status, active, before, qkind,
+            wit_bits, n_kinds, invalidated, B, T, K, packed, partial, out);
   if (err != cudaSuccess || kMode != kMax || g.grid.y == 1) return err;
-  fold_kernel<<<B, kFoldThreads, 0, s>>>(
-      static_cast<const int32_t*>(scratch) + g.qwords, g.grid.y,
-      static_cast<int32_t*>(out));
+  fold_kernel<<<B, kFoldThreads, 0, s>>>(partial, g.grid.y,
+                                         static_cast<int32_t*>(out));
   return cudaGetLastError();
 }
 
@@ -591,14 +692,14 @@ extern "C" {
 // int32 elements of scratch deps_join_dense_launch needs, or minus the
 // CUDA error of a failed query
 long long deps_join_dense_scratch_ints(int B, int T, int K) {
-  DenseGeometry g;
-  const cudaError_t err = dense_geometry(B, T, K, &g);
+  KtGeometry g;
+  const cudaError_t err = kt_geometry(B, T, K, &g);
   if (err != cudaSuccess) return -static_cast<long long>(err);
   return scratch_ints(g, kDeps, B);
 }
 
-// K1d: the arguments of deps_join_launch (consult.cu), and n_cols (the
-// length of cols) and scratch
+// K1d: the arguments of deps_join_launch (consult.cu) but vals, and n_cols
+// (the length of cols) and scratch
 int deps_join_dense_launch(const void* inc, const void* txn_id,
                            const void* kind, const void* status,
                            const void* active, const void* offsets,
@@ -616,13 +717,14 @@ int deps_join_dense_launch(const void* inc, const void* txn_id,
 // int32 elements of scratch max_conflict_dense_launch needs, or minus the
 // CUDA error of a failed query
 long long max_conflict_dense_scratch_ints(int B, int T, int K) {
-  DenseGeometry g;
-  const cudaError_t err = dense_geometry(B, T, K, &g);
+  KtGeometry g;
+  const cudaError_t err = kt_geometry(B, T, K, &g);
   if (err != cudaSuccess) return -static_cast<long long>(err);
   return scratch_ints(g, kMax, B);
 }
 
-// K2d: the arguments of max_conflict_launch (consult.cu), and n_cols
+// K2d: the arguments of max_conflict_launch (consult.cu) but vals, and
+// n_cols
 int max_conflict_dense_launch(const void* inc, const void* ts,
                               const void* txn_id, const void* active,
                               const void* offsets, const void* cols, int B,

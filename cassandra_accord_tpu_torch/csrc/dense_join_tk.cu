@@ -37,9 +37,9 @@
 // - A ring of stages in shared memory, each [S slots][128 keys] of the index
 //   and [N rows][128 keys] of the query, 128 bytes a row with the 128-byte
 //   swizzle, filled by the Tensor Memory Accelerator from two 2-D tensor
-//   maps (built on the host by cuTensorMapEncodeTiled, passed as
-//   __grid_constant__ parameters, so a CUDA graph captures them with the
-//   launch).  The maps clip the T and K tails and the query rows past B
+//   maps (built on the host by cuTensorMapEncodeTiled and kept per tensor,
+//   hopper.cuh; passed as __grid_constant__ parameters, so a CUDA graph
+//   captures them with the launch).  The maps clip the T and K tails and the query rows past B
 //   with zeros: T is free, K needs only K % 16 == 0 (the 16-byte row
 //   stride) and both bases 16-byte alignment.
 // - One producer warp: one lane issues both copies of a stage on its
@@ -86,13 +86,12 @@
 // failed device query or attribute call, else cudaGetLastError() after its
 // launches (0 = success).
 
-#include <dlfcn.h>
-
 #include <cstdint>
 #include <cuda.h>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -103,89 +102,6 @@ constexpr int kMaxStages = 8;
 constexpr int kOvPad = 4;                        // bytes after each s_ov row
 
 enum TkMode { kTkDeps = 0, kTkMax = 1 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-               "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// wait for the phase of parity `parity` to complete; a wait of about ten
-// seconds (a lost copy or arrival) traps, so a fault fails the launch
-// instead of hanging the card
-constexpr long long kHangCycles = 1LL << 34;
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  long long start = 0;
-  for (;;) {
-    uint32_t done = 0;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (start == 0) {
-      start = clock64();
-    } else if (clock64() - start > kHangCycles) {
-      __trap();
-    }
-  }
-}
-
-// a box of the tensor map at coordinates (c0 = key, c1 = row) into shared
-// memory at dst, completing on the mbarrier bar
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-// the shared-memory matrix descriptor of a K-major tile of 128-byte rows
-// with the 128-byte swizzle: start address, 8-row groups 1024 bytes apart
-// (the leading offset is not read for this layout)
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keeps the compiler from moving reads or writes of the accumulators
-// across the asynchronous products
-template <int R>
-__device__ __forceinline__ void fence_regs(int32_t* d) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
 
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
@@ -261,10 +177,6 @@ struct TkShape {
   // a stage: the index box [S][128 keys], then the query box [N][128 keys]
   static constexpr int kStage = (kSlots + N) * kKeyBox;
 };
-
-__host__ __device__ constexpr size_t round16(size_t x) {
-  return (x + 15) / 16 * 16;
-}
 
 // the shared memory after the ring: s_ov [N][S + 4] bytes, s_before [N][5],
 // s_qkind [N], s_best [N][5] int32, then the full and empty barriers
@@ -550,44 +462,6 @@ cudaError_t tk_geometry(int B, int T, TkGeometry* g) {
   return cudaSuccess;
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// the driver's cuTensorMapEncodeTiled, from the libcuda the process has
-// loaded (the CUDA runtime does), found once
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_NOW);
-    return h == nullptr ? nullptr
-                        : reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled"));
-  }();
-  return fn;
-}
-
-// a [rows, K] int8 row-major tensor as boxes of [box_rows][128 keys] with the
-// 128-byte swizzle; out-of-range rows and keys read as zero
-cudaError_t encode_map(CUtensorMap* map, const void* base, int rows, int K,
-                       int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorSharedObjectSymbolNotFound;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kKeyBox),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
-                        const_cast<void*>(base), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 long long tk_scratch_ints(const TkGeometry& g, int kMode, int B) {
   return kMode == kTkMax && g.grid.y > 1
       ? static_cast<long long>(B) * g.grid.y * kLanes : 0;
@@ -631,9 +505,9 @@ cudaError_t tk_launch(int B, int T, int K, cudaStream_t s, const void* inc,
   cudaError_t err = tk_geometry(B, T, &g);
   if (err != cudaSuccess) return err;
   CUtensorMap imap, qmap;
-  err = encode_map(&imap, inc, T, K, g.slots);
+  err = encode_map(&imap, inc, T, K, g.slots, kKeyBox);
   if (err != cudaSuccess) return err;
-  err = encode_map(&qmap, query, B, K, g.n);
+  err = encode_map(&qmap, query, B, K, g.n, kKeyBox);
   if (err != cudaSuccess) return err;
   auto* run = g.n == 16 ? tk_run<kMode, 16>
             : g.n == 64 ? tk_run<kMode, 64>

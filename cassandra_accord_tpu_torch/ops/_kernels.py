@@ -9,9 +9,9 @@ hand-written CUDA for sm_90a, with the same arguments and answers:
   of its own keys, so a call reads nnz*T index bytes.  Launches count as
   ``deps_join`` / ``max_conflict``.
 - ``dense`` (csrc/dense_join.cu): the overlap as an int8 tensor-core
-  product of the binarized query tile against the whole index, which a
-  call reads once per 64 query rows (K*T bytes).  Launches count as
-  ``deps_join_dense`` / ``max_conflict_dense``.
+  product (a TMA ring and wgmma) of the binarized query tile against the
+  whole index, which a call reads once per 256 query rows (K*T bytes).
+  Launches count as ``deps_join_dense`` / ``max_conflict_dense``.
 
 and a third entry pair for the callers that hold the index as the
 reference does, ``[T, K]`` (``ops/deps_kernels.py``'s one-shot consults,
@@ -27,9 +27,10 @@ The rule.  ``form="auto"`` (the default) takes ``join_form(b, t, k,
 n_cols)``, a pure function of host-known sizes (``n_cols = cols.numel()``,
 exact on the one-shot path, at most twice nnz on the service's pow2
 buckets): dense when the rows name at least ``DENSE_COLS_PER_KEY`` columns
-per index key and 64-row tile, K lies in [``DENSE_MIN_K``, ``DENSE_MAX_K``]
-and T is a multiple of 16; else CSR.  Nothing is read back from the card to decide.
-The constants come from a sweep of both forms on the card (PERF.md §6).
+per index key and ``DENSE_ROWS`` query rows, K lies in [``DENSE_MIN_K``,
+``DENSE_MAX_K``] and T is a multiple of 16; else CSR.  Nothing is read
+back from the card to decide.  The constants come from a sweep of both
+forms on the card (PERF.md §6).
 ``form="csr"`` or ``"dense"`` forces a form (tests, ``chip_smoke.py``);
 any other value raises.  For a ``[T, K]`` caller ``join_form(b, t, k,
 layout="tk")`` picks between the ``[T, K]`` entries ("dense") and the
@@ -97,13 +98,18 @@ LAUNCHES: Dict[str, int] = {"deps_join": 0, "max_conflict": 0,
                             "max_conflict_dense_tk": 0}
 
 FORMS = ("auto", "csr", "dense")
-# the dense form's query tile holds 64 rows of K bits in shared memory
+# the dense forms' int32 sums stay exact (255 * 2^14 keys < 2^31), and the
+# [K, T] form's query bytes small
 DENSE_MAX_K = 16384
 # join_form's thresholds, set from the sweep of both forms on the card
-# (PERF.md §6 has it): dense from 1.5 query columns per index key and
-# 64-row tile, and from one 64-key stage of index keys: rows over fewer
-# keys are short, both forms take a few microseconds and the CSR form's
-# one launch won most readings at K = 16, the dense form every one at 64
+# (PERF.md §6 has it): dense from 1.5 query columns per index key and 64
+# query rows (the dense kernel streams the index once for up to 256 rows,
+# but its products and epilogue grow with the rows: it broke even with CSR
+# near 1.4 columns per key at 64 rows and near 9 to 11 at 256, where the
+# rule's 6 sends rows of 6 to 9 columns per key to the slower form),
+# and from K = 64: rows naming all of K = 16 keys were CSR-faster in 7 of 8
+# readings, of 64 keys dense-faster in 7 of 8 (by at most 0.006 ms), of
+# 256 keys dense-faster in all
 DENSE_MIN_K = 64
 DENSE_COLS_PER_KEY = 1.5
 DENSE_ROWS = 64
@@ -428,11 +434,12 @@ def join_form(b: int, t: int, k: int, n_cols: Optional[int] = None,
     """"dense" or "csr" for a call of B rows over an index of T slots and K
     keys.  ``layout="kt"`` (the service's [K, T] index, a CSR query of
     ``n_cols`` columns, ``cols.numel()``): dense when the rows name at
-    least DENSE_COLS_PER_KEY columns per key and 64-row tile (the CSR form
-    re-reads n_cols*T index bytes, the dense form K*T per tile), K is at
-    least DENSE_MIN_K (below it rows are short and the CSR form's single
-    launch is cheaper) and at most DENSE_MAX_K, and T is a multiple of 16
-    (the dense kernel's 16-byte stages).  ``layout="tk"`` (a [T, K] index
+    least DENSE_COLS_PER_KEY columns per key and DENSE_ROWS rows (the CSR
+    form re-reads n_cols*T index bytes, the dense form's time grows with
+    K*T and the rows), K is at least DENSE_MIN_K (below it rows are short
+    and the CSR form's single launch is cheaper) and at most DENSE_MAX_K,
+    and T is a multiple of 16 (the index's tensor map takes a row pitch of
+    a multiple of 16 bytes).  ``layout="tk"`` (a [T, K] index
     and a dense [B, K] query, whose CSR form first transposes the index
     and reads the query's size back): dense whenever the [T, K] kernels
     take K (``tk_refusal``).  Host-known sizes only: nothing is read back

@@ -860,6 +860,7 @@ def phase_kernels(ctx):
             "method_floor_ms", "wrapper_host_us", "plain_ms", "library_ms",
             "bound_ms", "bound_by")
     return {"negative_columns": _kernel_columns(ctx),
+            "kt_edges": _kt_edges(ctx),
             "parity": _parity(ctx),
             "tk_refused": _tk_refused(ctx),
             "cases": [dict({k: r[k] for k in keys},
@@ -995,11 +996,13 @@ def _consult_sweep(ctx):
 # ``short_T`` slots; the wide row's (K=512, 2 keys per txn) with 8 rows of
 # 2 keys and one of 500 to 5,000 columns (duplicates); and indexes of 16
 # (the protocol paths'), 64 and 256 keys with 8 rows naming every key, at
-# the protocol paths' T and above
+# the protocol paths' T and above; and shape A's index (K = 512) with 256
+# rows (one pass of the dense form) of 2 to 128 keys each
 SWEEP = dict(config4=dict(T=65536, K=2048, B=64,
                           keys=(8, 32, 128, 256, 512, 1024),
                           short_T=(256, 1024, 2048, 4096, 8192, 16384)),
              wide=dict(T=65536, K=512, B=9, cols=(500, 1000, 5000)),
+             rows256=dict(T=65536, K=512, B=256, keys=(2, 8, 32, 128)),
              protocol=dict(T=4096, K=(16, 64, 256), B=8,
                            short_T=(128, 256, 1024)),
              iters=10)
@@ -1056,7 +1059,8 @@ def _kernel_sweep(ctx):
     dev = ctx["dev"]
     rng = np.random.default_rng(11)
     out = []
-    cases = [("config4", SWEEP["config4"]["K"]), ("wide", SWEEP["wide"]["K"])]
+    cases = [("config4", SWEEP["config4"]["K"]), ("wide", SWEEP["wide"]["K"]),
+             ("rows256", SWEEP["rows256"]["K"])]
     cases += [("protocol", k) for k in SWEEP["protocol"]["K"]]
     for case, k in cases:
         p = SWEEP[case]
@@ -1085,6 +1089,12 @@ def _kernel_sweep(ctx):
             for short in p["short_T"]:
                 out.append(_sweep_point(ctx, f"config4_{kpr}keys_T{short}",
                                         *_first_slots(key_T, g, short), rows))
+        elif case == "rows256":
+            for kpr in p["keys"]:
+                rows = [sorted(int(c) for c in rng.choice(k, kpr, replace=False))
+                        for _ in range(b)]
+                out.append(_sweep_point(ctx, f"rows256_{kpr}keys", key_T, g,
+                                        rows))
         elif case == "protocol":
             rows = [list(range(k))] * b
             for short in p["short_T"] + (t,):
@@ -1147,6 +1157,15 @@ def _kernel_columns(ctx):
     return {"T": t, "K": k, "rows": rows, "max_abs_err": errs}
 
 
+# K1d/K2d on [K, T] (csrc/dense_join.cu) at their edges, forced dense: T =
+# 1,040 (not a multiple of a 256-slot stage), K = 80 (a tail of a 128-key
+# stage), B = 1, 63, 65, 255, 256 (one pass each) and 300 (two row tiles);
+# each with the kinds as drawn and with half of them outside the witness
+# table.  (label, T, K, B, keys per query row)
+KT_EDGES = (("T1040", 1040, 64, 13, 24), ("K80", 4096, 80, 33, 40),
+            ("B1", 4096, 256, 1, 96), ("B63", 4096, 256, 63, 96),
+            ("B65", 4096, 256, 65, 96), ("B255", 4096, 256, 255, 96),
+            ("B256", 16384, 512, 256, 200), ("B300", 4096, 256, 300, 96))
 ODD_KINDS = (-1, -6, -7, -128, 9, 100, 127)
 
 
@@ -1155,6 +1174,50 @@ def _odd_kinds(np, rng, kinds):
     out = kinds.copy()
     odd = rng.random(out.size) < 0.5
     out[odd] = rng.choice(ODD_KINDS, int(odd.sum()))
+    return out
+
+
+def _kt_edges(ctx):
+    """K1d (bool and packed) and K2d at ``KT_EDGES``, each held exactly
+    against the plain version; max_abs_err per case."""
+    import numpy as np
+    torch = ctx["torch"]
+    from cassandra_accord_tpu_torch.ops import _kernels as K
+    rng = np.random.default_rng(43)
+    out = {}
+    for label, t, k, b, per_row in KT_EDGES:
+        key_inc, live, lanes, ts, kind, status, active = make_index(
+            np, rng, t, k, 2)
+        rows = [sorted(int(c) for c in rng.choice(k, per_row, replace=False))
+                for _ in range(b)]
+        _r, before, qkind = make_queries(np, rng, b, k, t, 2)
+        offsets, cols = to_csr(np, rows)
+
+        def up(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(ctx["dev"])
+        for odd in (False, True):
+            kd, qd = ((_odd_kinds(np, rng, kind), _odd_kinds(np, rng, qkind))
+                      if odd else (kind, qkind))
+            jargs = (up((live != 0).T.astype(np.uint8)), up(lanes), up(kd),
+                     up(status), up(active), up(offsets), up(cols),
+                     up(before), up(qd))
+            margs = (up((key_inc != 0).T.astype(np.uint8)), up(ts), up(lanes),
+                     up(active), up(offsets), up(cols))
+            errs = {}
+            for pk in (False, True):
+                got = ctx["real"]["deps_join"](*jargs, packed=pk, form="dense")
+                want = K.deps_join_plain(*jargs, packed=pk)
+                errs[f"K1d{'_packed' if pk else ''}"] = max_abs_err(
+                    torch, got, want)
+            errs["K2d"] = max_abs_err(
+                torch, ctx["real"]["max_conflict"](*margs, form="dense"),
+                K.max_conflict_plain(*margs))
+            sync(ctx)
+            name = f"{label}{'_odd_kinds' if odd else ''}"
+            need(all(e == 0 for e in errs.values()),
+                 f"[K, T] dense at {name} (T={t} K={k} B={b}) differs from "
+                 f"its plain version: {errs}")
+            out[name] = errs
     return out
 
 

@@ -646,8 +646,22 @@ def test_one_shot_consult_captures_in_a_cuda_graph(cuda):
 
 
 # ---------------------------------------------------------------------------
-# the parity inputs in every form
+# K1d/K2d on the [K, T] index (csrc/dense_join.cu): one pass for up to 256
+# query rows, at the edge shapes; and the parity inputs in every form
 # ---------------------------------------------------------------------------
+
+# (T, K, B, keys per row): T not a multiple of 128 (1,040), a K tail (80),
+# and B across the tile sizes (16, 64, 128, 256 rows) and past one tile
+KT_EDGE = {
+    "T1040": (1040, 64, 13, 24),
+    "K80": (4096, 80, 33, 40),
+    "B1": (2048, 128, 1, 64),
+    "B63": (2048, 128, 63, 64),
+    "B65": (2048, 128, 65, 64),
+    "B255": (2048, 256, 255, 96),
+    "B256": (4096, 512, 256, 200),
+    "B300_two_passes": (2048, 128, 300, 64),
+}
 
 ODD_KINDS = (-1, -6, -7, -128, 9, 100, 127)
 
@@ -659,6 +673,32 @@ def _odd_kinds(g, rng):
         odd = rng.random(x.size) < 0.5
         x[odd] = rng.choice(ODD_KINDS, int(odd.sum()))
         g[name] = torch.from_numpy(x).to(g[name].device)
+
+
+@pytest.mark.parametrize("odd", [False, True])
+@pytest.mark.parametrize("case", sorted(KT_EDGE))
+def test_kt_dense_at_the_edge_shapes(cuda, case, odd):
+    """K1d (bool and bit-packed) and K2d on [K, T], forced, equal to the
+    plain versions and to the CSR form, also with kind codes outside the
+    witness table."""
+    t, k, b, width = KT_EDGE[case]
+    rng = np.random.default_rng(t + k + b)
+    g = _inputs(rng, t, k, b, cuda, width=width)
+    if odd:
+        _odd_kinds(g, rng)
+    args, margs = _args(g)
+    before = dict(_kernels.LAUNCHES)
+    for pk in (False, True):
+        got = _kernels.deps_join(*args, packed=pk, form="dense")
+        assert torch.equal(got, _kernels.deps_join_plain(*args, packed=pk))
+        assert torch.equal(got, _kernels.deps_join(*args, packed=pk,
+                                                   form="csr"))
+    got = _kernels.max_conflict(*margs, form="dense")
+    assert torch.equal(got, _kernels.max_conflict_plain(*margs))
+    torch.cuda.synchronize()
+    after = dict(_kernels.LAUNCHES)
+    assert after["deps_join_dense"] == before["deps_join_dense"] + 2
+    assert after["max_conflict_dense"] == before["max_conflict_dense"] + 1
 
 
 def _signed_tk(t, k, b, device, seed):

@@ -65,11 +65,17 @@ TABLE = {
     "sweep_config4_128keys": (64, 65536, 2048, 8192, "dense"),
     "sweep_config4_rows_T256": (64, 256, 2048, 65536, "dense"),
     "sweep_config4_rows_T4096": (64, 4096, 2048, 65536, "dense"),
-    # rows naming every key of a 16-key index (the protocol paths'):
-    # CSR below one 64-key stage; of a 64- and a 256-key index: dense
+    # rows naming every key of a 16-key index (the protocol paths'): CSR;
+    # of a 64- and a 256-key index: dense
     "sweep_full_rows_K16_T4096": (8, 4096, 16, 128, "csr"),
     "sweep_full_rows_K64_T256": (8, 256, 64, 512, "dense"),
     "sweep_full_rows_K256_T128": (8, 128, 256, 2048, "dense"),
+    # shape A's index with 256 rows (one pass of the dense kernel) of 2 to
+    # 128 keys each: CSR-faster to 8 keys a row, dense from 32
+    "sweep_rows256_2keys": (256, 65536, 512, 512, "csr"),
+    "sweep_rows256_8keys": (256, 65536, 512, 2048, "csr"),
+    "sweep_rows256_32keys": (256, 65536, 512, 8192, "dense"),
+    "sweep_rows256_128keys": (256, 65536, 512, 32768, "dense"),
     # the dense kernel takes T % 16 == 0 only
     "config4_T_not_multiple_of_16": (64, 65544, 2048, 65536, "csr"),
 }
@@ -267,3 +273,49 @@ def test_unknown_form_raises():
                              jargs[3], jargs[4], cols, offsets, jargs[7],
                              jargs[8], form=bad)
     assert _kernels.FORMS == ("auto", "csr", "dense")
+
+
+# ---------------------------------------------------------------------------
+# (c) the [K, T] kernel's stage addresses (csrc/common.cuh), in Python
+# ---------------------------------------------------------------------------
+
+def _cuh_function(name):
+    """The one-line return expression of a constexpr helper in
+    csrc/common.cuh, as a Python function of its integer arguments (the
+    expression uses only integer operators that Python shares)."""
+    import re
+    src = (_kernels.CSRC / "common.cuh").read_text()
+    m = re.search(rf"constexpr int {name}\(int (\w+)(?:, int (\w+))?\) \{{\s*"
+                  rf"return (.*?);\s*\}}", src, re.S)
+    assert m, name
+    args = [a for a in m.groups()[:2] if a]
+    return eval(f"lambda {', '.join(args)}: {' '.join(m.group(3).split())}")
+
+
+def test_kt_stage_addresses_follow_the_tma_swizzle_and_meet_32_banks():
+    """kt_key_row is a permutation of the 128 keys of a stage and kt_key_pos
+    its inverse; kt_stage_offset is where TMA's 128-byte swizzle puts (key
+    row r, slot s) of a [128][128] box (bits 4-6 of the offset XOR bits
+    7-9); and each of a thread's fragment loads (k32 step ks, half h,
+    byte j; lane = 4g + c reads the word of slots 32w + 4g of key row
+    kt_key_row(32 ks + 16 h + 4 c + j)) puts the 32 lanes of a warp on 32
+    distinct banks, for every warp w of the warpgroup."""
+    row, pos = _cuh_function("kt_key_row"), _cuh_function("kt_key_pos")
+    offset = _cuh_function("kt_stage_offset")
+    assert sorted(row(p) for p in range(128)) == list(range(128))
+    assert all(pos(row(p)) == p and row(pos(p)) == p for p in range(1024))
+    for r in range(128):
+        for s in range(128):
+            linear = r * 128 + s
+            assert offset(r, s) == linear ^ (((linear >> 7) & 7) << 4)
+    for w in range(4):
+        for ks in range(4):
+            for h in range(2):
+                for j in range(4):
+                    banks = {offset(row(32 * ks + 16 * h + 4 * c + j),
+                                    32 * w + 4 * g) // 4 % 32
+                             for g in range(8) for c in range(4)}
+                    assert len(banks) == 32, (w, ks, h, j)
+    # read in key order instead, the same loads meet only 16 banks
+    banks = {offset(4 * c, 4 * g) // 4 % 32 for g in range(8) for c in range(4)}
+    assert len(banks) == 16
