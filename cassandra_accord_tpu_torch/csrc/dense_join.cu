@@ -48,9 +48,12 @@
 //   cuTensorMapEncodeTiled and kept per tensor (hopper.cuh), so the
 //   service's two index buffers and the reused scratch encode once.
 // - A ring of 3 to 8 stages, each S slots x 128 keys of the index and N x
-//   128 of the query, filled by one producer lane on "full" mbarriers
-//   (expect_tx of the stage's bytes) once both consumer warpgroups have
-//   released the stage on its "empty" one.
+//   128 of the query, filled by one lane of a producer warpgroup on "full"
+//   mbarriers (expect_tx of the stage's bytes) once both consumer
+//   warpgroups have released the stage on its "empty" one.  The producer
+//   warpgroup gives its registers to the consumers (setmaxnreg: 40 and
+//   232 of the 168 a thread of a 384-thread block starts with), so that 2
+//   x 64 accumulators, a stage's fragments and the pass fit unspilled.
 // - The layout trap.  int8 wgmma reads B only K-major from shared memory,
 //   and the index stage is slot-major.  So the index is the A operand,
 //   from registers: each thread loads four 32-bit words, four slots of
@@ -79,10 +82,9 @@
 //   the lanes of max(ts, txn_id) and the active bit).  Then each warp takes
 //   rows b = warp, warp + 8, ... and each lane four consecutive slots.  The
 //   pass of one tile runs in shares between the next tile's stages, after
-//   each stage is released, so the producer keeps streaming (at N = 256
-//   right after its own tile: with 128 accumulators live the pass
-//   spilled).  A row that shares no key with the warp's slots (K2d: no
-//   active one) skips its compares.  K1d: the predicate, then one 4-byte
+//   each stage is released, so the producer keeps streaming.  A row that
+//   shares no key with the warp's slots (K2d: no active one) skips its
+//   compares.  K1d: the predicate, then one 4-byte
 //   store of the lane's four bools (a warp writes 128 contiguous bytes of
 //   a row) or one byte per two lanes packed.  K2d: the lane's masked lex
 //   max, the warp's (__reduce_max_sync lane by lane), and a running max
@@ -93,17 +95,15 @@
 // >= 0 and > 0 iff some product is, and stays below 2^31 (K <= 16,384).
 //
 // Measured (PERF.md §6, H100 80GB HBM3 at 700 W, cold L2 after a 128 MB
-// write, tools_torch/kt_compare.py): at config 4 K1d 0.073 ms and K2d
-// 0.077, 57 % and 53 % of the byte bound; at the wide row 0.028 and 0.030;
-// at shape A's 256 rows 0.070 and 0.090, against the 64-row kernel's
-// 0.076 and 0.117.  Built without the predicate pass the kernel takes
+// write, tools_torch/kt_compare.py): at config 4 K1d 0.075 ms and K2d
+// 0.077, 56 % and 53 % of the byte bound; at the wide row 0.029 and 0.031;
+// at shape A's 256 rows 0.068 and 0.091, against the 64-row kernel's
+// 0.076 and 0.119.  Built without the predicate pass the kernel takes
 // 0.063 ms at config 4 (a plain read of the index, torch.amax, takes
-// 0.060 by the same method: tools_torch/tk_probes.py) and 0.042 at shape
-// A, and without the products 0.066 and 0.053: with one block an SM, the
+// 0.060 by the same method: tools_torch/tk_probes.py) and 0.038 at shape
+// A, and without the products 0.066 and 0.051: with one block an SM, the
 // products and the per-tile pass are not hidden under the stream.  ptxas:
-// 96 to 136 registers and no spill at N <= 64; at N = 128 and 256 the
-// 168-register cap of a 288-thread block with 2 x 64 accumulators spills
-// about 100 bytes.
+// 168 registers a thread at launch and no spill at any N.
 //
 // Every entry point launches on the caller's stream (a memset node, the
 // query kernel, the product kernel and, for K2d with several blocks per
@@ -125,7 +125,7 @@
 namespace {
 
 constexpr int kConsumers = 256;                  // two warpgroups
-constexpr int kThreads = kConsumers + 32;        // and the producer warp
+constexpr int kThreads = kConsumers + 128;       // and a producer warpgroup
 constexpr int kKeys = 128;                       // keys a stage
 constexpr int kBox = 128;                        // slots an index box
 constexpr int kMaxStages = 8;
@@ -327,8 +327,11 @@ kt_kernel(const __grid_constant__ CUtensorMap imap,   // [K, T] u8
   }
   __syncthreads();
 
-  if (warp == kConsumers / 32) {                  // the producer
-    if (lane == 0) {
+  if (warp >= kConsumers / 32) {                  // the producer warpgroup
+    // gives its registers to the consumers: 128 x 40 + 256 x 232 fit the
+    // SM's 65,536, where the block's 384 threads start at 168 each
+    setmaxnreg_dec<40>();
+    if (warp == kConsumers / 32 && lane == 0) {
       const int total = my_tiles * nk;
       for (int it = 0; it < total; ++it) {
         const int s = it % stages;
@@ -350,6 +353,7 @@ kt_kernel(const __grid_constant__ CUtensorMap imap,   // [K, T] u8
 
   // the consumers: warpgroup wg takes the index box at slot0 of a stage
   // and the query rows from row0; a thread, slots sl .. sl + 3 of the box
+  setmaxnreg_inc<232>();
   const int wg = warp >> 2;
   const int wl = warp & 3;
   const int g = lane >> 2;
@@ -372,11 +376,7 @@ kt_kernel(const __grid_constant__ CUtensorMap imap,   // [K, T] u8
   // slot's max(ts, txn_id) and whether it is active), and each stage's
   // consumers take a share of the pass's items after releasing the stage.
   // This warp's items: rows warp, warp + 8, ... (rows_w of them) of each
-  // 128-slot group, a lane's four slots at a time.  At N = 256 the 128
-  // accumulators a thread holds through the stages leave no registers for
-  // the pass (it spilled, and the kernel slowed by 15 %), so that tile
-  // shape runs each pass right after its own tile instead.
-  constexpr bool kInterleave = !Sh::kSplit;
+  // 128-slot group, a lane's four slots at a time.
   const int rows_w = nrows > warp ? (nrows - warp + 7) / 8 : 0;
   const int n_items = (kS / 128) * rows_w;
   int pend = -1;                                 // the tile pending in s_ov
@@ -482,7 +482,7 @@ kt_kernel(const __grid_constant__ CUtensorMap imap,   // [K, T] u8
 #pragma unroll
       for (int m = 0; m < 2; ++m) fence_regs<Sh::kAcc>(acc[m]);
       if (lane == 0) mbar_arrive(empty0 + 8 * s);   // this warp is done
-      if (kInterleave && pend >= 0) run_items(min(n_items, (kc + 1) * share));
+      if (pend >= 0) run_items(min(n_items, (kc + 1) * share));
     }
     if (pend >= 0) run_items(n_items);
     consumers_sync();                            // s_ov and s_slot are free
@@ -538,7 +538,6 @@ kt_kernel(const __grid_constant__ CUtensorMap imap,   // [K, T] u8
     consumers_sync();                            // both are in place
     pend = tile;
     done = 0;
-    if constexpr (!kInterleave) run_items(n_items);
   }
   if (pend >= 0) run_items(n_items);
   if constexpr (kMode == kMax) {

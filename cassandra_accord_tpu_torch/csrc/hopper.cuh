@@ -79,6 +79,18 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
          (static_cast<uint64_t>(1) << 62);
 }
 
+// the registers of each thread of the calling warpgroup, lowered or raised
+// to R (every warp of the warpgroup executes it)
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
