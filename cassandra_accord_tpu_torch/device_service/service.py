@@ -21,8 +21,9 @@ the resolver's dirty-key tracking decides what is still servable), so every
 answer is exact with respect to its submission point — byte-identical to the
 eager path the burn tests reconcile against.
 
-Backend: ``torch`` runs the consult kernels (K1 deps, K2 max; ops/_kernels)
-on the service's device — the hand-written CUDA kernels on the card, their
+Backend: ``torch`` runs the consult kernels (K12, both halves in one
+launch, or K1d and K2d for wide rows; ops/_kernels) on the service's
+device — the hand-written CUDA kernels on the card, their
 plain torch versions when the caller asked for the CPU; both count as
 ``device_consults``: it is the kernel tier.  ``host`` is the deterministic
 host tier — the resolver's own vectorized numpy pass, same answers
@@ -303,7 +304,7 @@ class DeviceConsultService:
         return deps[:batch.rows], max_lanes[:batch.rows]
 
     def _dispatch_torch(self, batch: ConsultBatch, buffers):
-        from .kernel import ragged_consult_t
+        from .kernel import ragged_consult_t, to_host
         k, t = buffers["live_T"].shape
         dev = buffers["live_T"].device
         # bit-packing the result only pays when it crosses a real transfer
@@ -314,12 +315,12 @@ class DeviceConsultService:
         def up(a):
             return torch.from_numpy(a).to(dev)
 
-        out = ragged_consult_t(
+        # one launch, both answers read back in one copy (kernel.py)
+        deps, max_lanes = to_host(*ragged_consult_t(
             buffers["live_T"], buffers["key_T"], buffers["ts"],
             buffers["txn_id"], buffers["kind"], buffers["status"],
             buffers["active"], up(batch.flat_cols), up(batch.offsets),
-            up(batch.before), up(batch.kind), packed=packed)
-        deps, max_lanes = (x.cpu().numpy() for x in out)
+            up(batch.before), up(batch.kind), packed=packed))
         if packed:
             deps = np.unpackbits(deps, axis=1, bitorder="little") \
                 .astype(bool)[:, :t]

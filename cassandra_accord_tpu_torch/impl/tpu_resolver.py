@@ -40,9 +40,10 @@ work amortizes launch+transfer):
 
 - host tier  — one vectorized numpy pass (BLAS f32 matmuls + lane-wise lex
                compares).  No launch overhead; serves small windows.
-- device tier — the consult kernels on the device: K1 (deps) and K2 (max)
-               of ops/_kernels over the [K, T] incidence, through the
-               persistent service or a one-shot ragged_consult_t call.
+- device tier — the consult kernels on the device: K12 (deps and max in
+               one launch; K1d and K2d for wide rows) of ops/_kernels over
+               the [K, T] incidence, through the persistent service or a
+               one-shot ragged_consult_t call.
                Serves large batches / deep indexes.
 
 The canonical index lives in host numpy (mutations are in-place row writes);
@@ -1114,13 +1115,14 @@ class TpuDepsResolver(DepsResolver):
         return deps, max_lanes
 
     def _consult_device(self, q, before, kind):
-        """The consult on the device — one K1 and one K2 launch for the
-        whole batch (device_service.kernel.ragged_consult_t, the service's
-        own call) over the buffers ``_sync_device`` keeps in the kernels'
-        layout.  The query goes over as CSR; the batch dim pads to a power
-        of two, as in the reference, so shapes stay bucketed."""
+        """The consult on the device — one K12 launch for the whole batch
+        (device_service.kernel.ragged_consult_t, the service's own call;
+        K1d and K2d for wide rows) over the buffers ``_sync_device`` keeps
+        in the kernels' layout, both answers read back in one copy.  The
+        query goes over as CSR; the batch dim pads to a power of two, as in
+        the reference, so shapes stay bucketed."""
         import torch
-        from ..device_service.kernel import ragged_consult_t
+        from ..device_service.kernel import ragged_consult_t, to_host
         self.device_consults += q.shape[0]
         self._sync_device()
         b = q.shape[0]
@@ -1141,7 +1143,7 @@ class TpuDepsResolver(DepsResolver):
         # transfer-bound regime: bit-pack the deps mask on device (8×
         # smaller result) and unpack host-side
         packed = self._t >= 32768 and self._t % 8 == 0
-        deps, max_lanes = (x.cpu().numpy() for x in ragged_consult_t(
+        deps, max_lanes = to_host(*ragged_consult_t(
             s["live_T"], s["key_T"], s["ts"], s["txn_id"], s["kind"],
             s["status"], s["active"], up(cols.astype(np.int32)), up(offsets),
             up(before_p), up(kind_p), packed=packed))
@@ -1391,7 +1393,7 @@ def _calibrate_threshold(device) -> float:
     measurement serves every store's resolver)."""
     import torch
     from ..device_service.index import front_from_host
-    from ..device_service.kernel import ragged_consult_t
+    from ..device_service.kernel import ragged_consult_t, to_host
     key = str(device)
     if key in _CALIBRATED:
         return _CALIBRATED[key]
@@ -1407,14 +1409,13 @@ def _calibrate_threshold(device) -> float:
 
     def round_trip():
         # what _consult_device does per batch: upload the CSR query (one
-        # key per row), two launches, copy both answers back
+        # key per row), one launch, copy both answers back in one copy
         q = [torch.from_numpy(a).to(device) for a in (
             np.arange(b + 1, dtype=np.int32), np.arange(b, dtype=np.int32),
             zeros((b, TS_LANES), np.int32), zeros((b,), np.int8))]
-        for x in ragged_consult_t(s["live_T"], s["key_T"], s["ts"],
+        to_host(*ragged_consult_t(s["live_T"], s["key_T"], s["ts"],
                                   s["txn_id"], s["kind"], s["status"],
-                                  s["active"], q[1], q[0], q[2], q[3]):
-            x.cpu()
+                                  s["active"], q[1], q[0], q[2], q[3]))
 
     round_trip()                               # first use (kernel build)
     t0 = time.perf_counter()
@@ -1437,7 +1438,7 @@ def warm_device_tier(config, kind: str) -> None:
     """Pay the device tier's one-time start-up now: the torch import, the
     device's context, the kernel library and the consult path's first use.
     The cost model's calibration does all of that (one small index uploaded,
-    both kernels launched twice) and caches its threshold for every
+    K12 launched twice) and caches its threshold for every
     resolver.  A server on real time calls this before it takes requests:
     paid inside its first consult, these seconds stall its event loop past
     its own message timeouts.  ``kind`` is the node's resolver; nothing is

@@ -13,7 +13,14 @@ hand-written CUDA for sm_90a, with the same arguments and answers:
   whole index, which a call reads once per 256 query rows (K*T bytes).
   Launches count as ``deps_join_dense`` / ``max_conflict_dense``.
 
-and a third entry pair for the callers that hold the index as the
+The service's window takes both halves in one launch: K12
+``fused_consult`` (csrc/consult.cu), the CSR form of K1 over ``live_T`` and
+of K2 over ``key_T`` with the slot data and the staged CSR slice read once,
+returning both answers as views of one buffer (``consult_out``: the lanes
+first, then the deps) that ``device_service.kernel.to_host`` brings back in
+one copy.  Launches count as ``fused_consult``.
+
+And a third entry pair for the callers that hold the index as the
 reference does, ``[T, K]`` (``ops/deps_kernels.py``'s one-shot consults,
 the model and sharded steps): ``deps_join_tk`` / ``max_conflict_tk``
 (csrc/dense_join_tk.cu), the dense product on ``[T, K]`` and the ``[B, K]``
@@ -95,7 +102,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: Dict[str, int] = {"deps_join": 0, "max_conflict": 0,
                             "deps_join_dense": 0, "max_conflict_dense": 0,
                             "deps_join_dense_tk": 0,
-                            "max_conflict_dense_tk": 0}
+                            "max_conflict_dense_tk": 0, "fused_consult": 0}
 
 FORMS = ("auto", "csr", "dense")
 # the dense forms' int32 sums stay exact (255 * 2^14 keys < 2^31), and the
@@ -205,6 +212,11 @@ def lib() -> ctypes.CDLL:
         so.max_conflict_tk_launch.restype = i32
         so.max_conflict_tk_scratch_ints.argtypes = [i32, i32]
         so.max_conflict_tk_scratch_ints.restype = ctypes.c_longlong
+        so.fused_consult_launch.argtypes = [vp] * 11 + \
+            [ctypes.c_ulonglong] + [i32] * 6 + [vp] * 4
+        so.fused_consult_launch.restype = i32
+        so.fused_consult_scratch_ints.argtypes = [i32, i32]
+        so.fused_consult_scratch_ints.restype = ctypes.c_longlong
         _LIB = so
     return _LIB
 
@@ -284,6 +296,11 @@ def _share(inc_T: torch.Tensor, offsets: torch.Tensor, cols: torch.Tensor,
     q = dense_query(offsets, cols, inc_T.shape[0], vals)
     if vals is not None:
         return _positive(q, inc_T.view(torch.int8))
+    return _overlap(q, inc_T)
+
+
+def _overlap(q: torch.Tensor, inc_T: torch.Tensor) -> torch.Tensor:
+    """[B, T] overlap of the dense [B, K] counts with the 0/1 index."""
     return (q.float() @ inc_T.float()) > 0
 
 
@@ -362,6 +379,32 @@ def max_conflict_plain(inc_T, ts, txn_id, active, offsets, cols,
 def max_conflict_tk_plain(inc, ts, txn_id, active, query) -> torch.Tensor:
     """K2 on the [T, K] index and the dense [B, K] query."""
     return _max_of(_share_tk(inc, query), ts, txn_id, active)
+
+
+def fused_consult_plain(live_T, key_T, ts, txn_id, kind, status, active,
+                        offsets, cols, before, qkind, packed: bool = False):
+    """K12: ``deps_join_plain`` over ``live_T`` and ``max_conflict_plain``
+    over ``key_T``, the query densified once."""
+    q = dense_query(offsets, cols, live_T.shape[0])
+    return (_deps_mask(_overlap(q, live_T), txn_id, kind, status, active,
+                       before, qkind, packed),
+            _max_of(_overlap(q, key_T), ts, txn_id, active))
+
+
+def consult_out(b: int, t: int, packed: bool, device) -> tuple:
+    """(deps, max_lanes): the two answers of a window as views of one uint8
+    buffer (a multiple of 4 bytes long), the [B, 5] int32 lanes at offset 0
+    and the deps ([B, T] bool, or [B, T/8] uint8 bit-packed) from the next
+    16-byte boundary, so that one copy brings both back
+    (``device_service.kernel.to_host``)."""
+    start = -(-b * TS_LANES * 4 // 16) * 16
+    width = t // 8 if packed else t
+    buf = torch.empty((start + -(-b * width // 4) * 4,), dtype=torch.uint8,
+                      device=device)
+    max_lanes = buf.view(torch.int32).as_strided((b, TS_LANES), (TS_LANES, 1))
+    deps = (buf if packed else buf.view(torch.bool)).as_strided(
+        (b, width), (width, 1), start)
+    return deps, max_lanes
 
 
 # ---------------------------------------------------------------------------
@@ -490,16 +533,40 @@ def _ptr_or_null(x: Optional[torch.Tensor]) -> Optional[ctypes.c_void_p]:
     return None if x is None else _ptr(x)
 
 
+def _output(out: Optional[torch.Tensor], shape: tuple, dtype: torch.dtype,
+            device: torch.device) -> torch.Tensor:
+    """A new output tensor, or ``out`` checked to be one the kernels can
+    write (their vector stores need a 16-byte aligned base)."""
+    if out is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    _check("out", out, dtype, shape, device)
+    if out.data_ptr() % 16:
+        raise ValueError(f"out must be 16-byte aligned, got address % 16 = "
+                         f"{out.data_ptr() % 16}")
+    return out
+
+
+def _into(out: Optional[torch.Tensor], got: torch.Tensor) -> torch.Tensor:
+    """A plain version's answer, written into ``out`` when one is given."""
+    if out is None:
+        return got
+    _check("out", out, got.dtype, tuple(got.shape), got.device)
+    return out.copy_(got)
+
+
 def deps_join(inc_T, txn_id, kind, status, active, offsets, cols, before,
               qkind, packed: bool = False, form: str = "auto",
-              vals: Optional[torch.Tensor] = None) -> torch.Tensor:
+              vals: Optional[torch.Tensor] = None,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K1: the dependency mask [B, T] bool, or [B, T/8] uint8 bit-packed,
     through the CSR or the dense kernel (``form``, see ``join_form``); with
-    ``vals`` the signed overlap, CSR form only."""
+    ``vals`` the signed overlap, CSR form only.  ``out``: the tensor to
+    write it into (one of ``consult_out``'s views)."""
     _check_form(form)
     if inc_T.device.type == "cpu":
-        return deps_join_plain(inc_T, txn_id, kind, status, active, offsets,
-                               cols, before, qkind, packed, vals)
+        return _into(out, deps_join_plain(inc_T, txn_id, kind, status, active,
+                                          offsets, cols, before, qkind,
+                                          packed, vals))
     b, t, k = _check_common(inc_T, txn_id, active, offsets, cols, before,
                             vals)
     dev = inc_T.device
@@ -509,8 +576,8 @@ def deps_join(inc_T, txn_id, kind, status, active, offsets, cols, before,
     if packed and t % 8:
         raise ValueError(f"bit-packed output needs T % 8 == 0, got T={t}")
     dense = _choose(form, inc_T, b, cols.numel(), vals is not None) == "dense"
-    out = torch.empty((b, t // 8) if packed else (b, t),
-                      dtype=torch.uint8 if packed else torch.bool, device=dev)
+    out = _output(out, (b, t // 8) if packed else (b, t),
+                  torch.uint8 if packed else torch.bool, dev)
     if b == 0 or t == 0:
         return out
     so = lib()
@@ -611,20 +678,21 @@ def max_conflict_tk(inc, ts, txn_id, active, query) -> torch.Tensor:
 
 def max_conflict(inc_T, ts, txn_id, active, offsets, cols,
                  form: str = "auto",
-                 vals: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 vals: Optional[torch.Tensor] = None,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K2: per query row, the lex max [B, 5] int32 of max(ts, txn_id) over
     the active slots sharing a key (zero lanes when none), through the CSR
     or the dense kernel (``form``, see ``join_form``); with ``vals`` the
-    signed overlap, CSR form only."""
+    signed overlap, CSR form only.  ``out``: as ``deps_join``'s."""
     _check_form(form)
     if inc_T.device.type == "cpu":
-        return max_conflict_plain(inc_T, ts, txn_id, active, offsets, cols,
-                                  vals)
+        return _into(out, max_conflict_plain(inc_T, ts, txn_id, active,
+                                             offsets, cols, vals))
     b, t, k = _check_common(inc_T, txn_id, active, offsets, cols, vals=vals)
     dev = inc_T.device
     _check("ts", ts, torch.int32, (t, TS_LANES), dev)
     dense = _choose(form, inc_T, b, cols.numel(), vals is not None) == "dense"
-    out = torch.empty((b, TS_LANES), dtype=torch.int32, device=dev)
+    out = _output(out, (b, TS_LANES), torch.int32, dev)
     if b == 0 or t == 0:
         return out.zero_()
     so = lib()
@@ -650,3 +718,49 @@ def max_conflict(inc_T, ts, txn_id, active, offsets, cols,
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
     return out
+
+
+def fused_consult(live_T, key_T, ts, txn_id, kind, status, active, offsets,
+                  cols, before, qkind, packed: bool = False):
+    """K12: ``deps_join`` over ``live_T`` and ``max_conflict`` over
+    ``key_T`` for one CSR query (0/1 indexes, no values) in one launch of
+    the CSR kernel (csrc/consult.cu), the service's window.  Returns (deps
+    [B, T] bool or [B, T/8] uint8, max_lanes [B, 5] int32), views of one
+    buffer (``consult_out``)."""
+    k, t = live_T.shape
+    b = offsets.numel() - 1
+    if live_T.device.type == "cpu":
+        deps, max_lanes = consult_out(b, t, packed, live_T.device)
+        got = fused_consult_plain(live_T, key_T, ts, txn_id, kind, status,
+                                  active, offsets, cols, before, qkind, packed)
+        deps.copy_(got[0])
+        max_lanes.copy_(got[1])
+        return deps, max_lanes
+    _check_common(live_T, txn_id, active, offsets, cols, before)
+    dev = live_T.device
+    _check("key_T", key_T, torch.uint8, (k, t), dev)
+    _check("ts", ts, torch.int32, (t, TS_LANES), dev)
+    _check("kind", kind, torch.int8, (t,), dev)
+    _check("status", status, torch.int8, (t,), dev)
+    _check("qkind", qkind, torch.int8, (b,), dev)
+    if packed and t % 8:
+        raise ValueError(f"bit-packed output needs T % 8 == 0, got T={t}")
+    deps, max_lanes = consult_out(b, t, packed, dev)
+    if b == 0 or t == 0:
+        max_lanes.zero_()
+        return deps, max_lanes
+    so = lib()
+    # scratch: the partials of a row group that several blocks share, with
+    # their counters
+    scratch = _scratch(so.fused_consult_scratch_ints(b, t), "fused_consult",
+                       dev)
+    rc = so.fused_consult_launch(
+        _ptr(live_T), _ptr(key_T), _ptr(ts), _ptr(txn_id), _ptr(kind),
+        _ptr(status), _ptr(active), _ptr(offsets), _ptr(cols), _ptr(before),
+        _ptr(qkind), ctypes.c_ulonglong(_WIT_BITS), _WIT_NP.shape[0],
+        INVALIDATED, b, t, k, int(bool(packed)), _ptr_or_null(scratch),
+        _ptr(max_lanes), _ptr(deps), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"fused_consult launch failed: CUDA error {rc}")
+    LAUNCHES["fused_consult"] += 1
+    return deps, max_lanes

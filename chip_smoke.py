@@ -13,19 +13,23 @@ Phases, one JSON line each; any failure exits non-zero:
             linked into one library, with its time;
 3. kernels  K1 (deps_join) and K2 (max_conflict) in both forms over the
             [K, T] index, CSR (csrc/consult.cu) and dense
-            (csrc/dense_join.cu: K1d, K2d), and K1d/K2d on the [T, K] index
-            as it lies (csrc/dense_join_tk.cu: TMA ring, int8 wgmma), at
+            (csrc/dense_join.cu: K1d, K2d), K1d/K2d on the [T, K] index
+            as it lies (csrc/dense_join_tk.cu: TMA ring, int8 wgmma), and
+            K12 (fused_consult, csrc/consult.cu: K1 and K2 of the CSR form
+            in one launch, the service's window; against its plain version
+            and K1 + K2, and timed in turns with K1 + K2), at
             full size against their plain torch versions, exactly (the
             eager answer and the graph replays' answers; the [T, K] ones
             also against the [K, T] answers, and with a K tail of 80), and
             on rows with columns -1, -K, K and -K-1 (wrapped once or
-            dropped, as the reference's densify does); each case once more
-            through the service's consult (ragged_consult_t), whose
-            wrappers pick the form (join_form), and through the one-shot
+            dropped, as the reference's densify does), K12 also on an empty
+            batch and with kind codes outside the table; each case once more
+            through the service's consult (ragged_consult_t), which picks
+            the form (join_form), and through the one-shot
             consult (ops.deps_kernels.consult) on the [T, K] index, launches
             counted: config 4 and the wide row on K1d/K2d in the service,
-            the rest on K1/K2 (the dense form refuses the cases with T % 16
-            != 0, checked), every case on the [T, K] kernels one-shot (K =
+            the rest one K12 launch each (the dense form refuses the cases
+            with T % 16 != 0, checked), every case on the [T, K] kernels one-shot (K =
             72 and a misaligned query go to CSR and a forced dense raises,
             checked); at shape A, config 4 and the wide row the one-shot
             consult's transpose route (transposes, CSR query, [K, T]
@@ -47,7 +51,8 @@ Phases, one JSON line each; any failure exits non-zero:
             answer is held against the plain version on the same inputs;
 5. burn     the main path: a seeded burn with the device tier forced
             through the service and frontier execution on; the launch
-            counts are zeroed just before it and read just after; every
+            counts are zeroed just before it and read just after (every
+            window one K12 launch, no other kernel); every
             tenth kernel answer is checked against the plain version, the
             trace must equal the same burn on the host backend.  The same
             burn through the resolver's one-shot device path (no service)
@@ -75,7 +80,7 @@ Phases, one JSON line each; any failure exits non-zero:
             launches and device consults at exit) fed 33 txns: its replies
             equal the same binary's on the host backend, exit 0, no
             traceback, launches and device consults on the card (two of
-            each kernel's launches its warm-up on init), none on the host
+            K12's launches its warm-up on init), none on the host
             backend;
 8. verify   the verify resolver (every answer checked against the cfk walk,
             frontiers every 0.7 sim-s) on a seed-7 300-op burn with the
@@ -111,22 +116,22 @@ Phases, one JSON line each; any failure exits non-zero:
             labelled truncated, with the events reached and the live index
             held); sampled parity against the cfk walk (range queries too),
             the cost model's calibrated threshold (five calibrations) and
-            its routing split, K1/K2 launches per replay, every tenth call
-            checked against the plain version.
+            its routing split, launches per replay and kernel, every tenth
+            call checked against the plain version.
 12. bench   the port's bench (bench_torch.py): ``--smoke`` in a subprocess
             (exit 0, the tail contract, the card named in its last line),
             then its kernel, service, deps_graph and graph stages in process
             at the smallest sizes bench.py uses (bench_kernel(4096),
             bench_service(8192), bench_deps_graph(ts=(1024,)),
             bench_graph(t=8192, iters=1)), each holding every answer
-            against the host tier or the edge twins; K1/K2 launches counted
+            against the host tier or the edge twins; launches counted
             around them, every tenth call checked against the plain version
             (the checks sit inside the stages' timed regions, so the rates
             this phase prints are not the bench's).
 
 Then the card's nvidia-smi line, one ``{"kernels": [...]}`` line (K1, K2,
-K1d, K2d on [K, T] and K1d, K2d on [T, K], each with its launches per path
-and its times at every measured shape in each form) and, last,
+K1d, K2d on [K, T], K1d, K2d on [T, K] and K12, each with its launches per
+path and its times at every measured shape in each form) and, last,
 ``{"ok": true, "device": {...}}``.  Without CUDA, or run from a directory
 that does not hold the port, it exits non-zero and prints no result.
 """
@@ -173,7 +178,12 @@ REPLACES = {
     # (TMA ring, int8 wgmma): the one-shot consults' and the steps' path
     "deps_join_dense_tk": TPU_KERNEL,
     "max_conflict_dense_tk": MAX_HALF,
+    # K12: K1 and K2 in one launch, the service's window (the reference's
+    # one program, device_service/kernel.py:37-68); it replaces the Pallas
+    # kernel and the XLA max half (``also_replaces`` in the kernels line)
+    "fused_consult": TPU_KERNEL,
 }
+ALSO_REPLACES = {"fused_consult": MAX_HALF}
 SOURCES = {"deps_join": "cassandra_accord_tpu_torch/csrc/consult.cu",
            "max_conflict": "cassandra_accord_tpu_torch/csrc/consult.cu",
            "deps_join_dense": "cassandra_accord_tpu_torch/csrc/dense_join.cu",
@@ -182,12 +192,16 @@ SOURCES = {"deps_join": "cassandra_accord_tpu_torch/csrc/consult.cu",
            "deps_join_dense_tk":
                "cassandra_accord_tpu_torch/csrc/dense_join_tk.cu",
            "max_conflict_dense_tk":
-               "cassandra_accord_tpu_torch/csrc/dense_join_tk.cu"}
+               "cassandra_accord_tpu_torch/csrc/dense_join_tk.cu",
+           "fused_consult": "cassandra_accord_tpu_torch/csrc/consult.cu"}
 CSR_KERNELS = ("deps_join", "max_conflict")
+# the service's window on the CSR form: one K12 launch
+FUSED = "fused_consult"
 TK_KERNELS = ("deps_join_dense_tk", "max_conflict_dense_tk")
-# the wrappers the recorders hold: the [K, T] ones (a form each) and the
-# [T, K] ones; their plain versions are ``<name>_plain``
-WRAPPERS = ("deps_join", "max_conflict", "deps_join_tk", "max_conflict_tk")
+# the wrappers the recorders hold: the [K, T] ones (a form each), the
+# [T, K] ones and K12; their plain versions are ``<name>_plain``
+WRAPPERS = ("deps_join", "max_conflict", "deps_join_tk", "max_conflict_tk",
+            FUSED)
 # BASELINE.md config 4 (range transactions of 1,000 keys): the kernels
 # phase's case whose consult is the dense kernels' path
 CONFIG4 = "config4_T65536_K2048_B64_1024keys"
@@ -203,24 +217,24 @@ def kernel_name(base, form) -> str:
 
 
 def k1_launches(launches) -> int:
-    """K1 launches in any form: what one deps_join or deps_join_tk wrapper
-    call adds."""
+    """K1 launches in any form: what one deps_join, deps_join_tk or
+    fused_consult wrapper call adds."""
     return (launches["deps_join"] + launches["deps_join_dense"]
-            + launches["deps_join_dense_tk"])
+            + launches["deps_join_dense_tk"] + launches[FUSED])
 
 
 def need_csr_only(launches, what) -> None:
-    """Both CSR kernels launched and no dense one: the service's paths,
-    whose shapes join_form keeps on the CSR form."""
-    need(all(launches[n] > 0 for n in CSR_KERNELS)
-         and all(launches[n] == 0 for n in ("deps_join_dense",
-                                            "max_conflict_dense")
-                 + TK_KERNELS),
+    """K12 launched and no other kernel: the service's paths, whose shapes
+    join_form keeps on the CSR form, where a window is one K12 launch."""
+    need(launches[FUSED] > 0
+         and all(v == 0 for n, v in launches.items() if n != FUSED),
          f"{what} launched {launches}")
 
 
 def call_shape(name, args):
     """(B, T, K) of a call of wrapper ``name`` with ``args``."""
+    if name == FUSED:
+        return args[7].numel() - 1, args[0].shape[1], args[0].shape[0]
     if name.endswith("_tk"):
         query = args[5] if name == "deps_join_tk" else args[4]
         return query.shape[0], args[0].shape[0], args[0].shape[1]
@@ -329,8 +343,8 @@ def host_us(torch, fn, reps: int) -> float:
 
 
 def join_bound(torch, name, inc_T, offsets, cols, packed=False):
-    """(bound_ms, bound_by, bytes, ops) for one K1/K2 call over the [K, T]
-    index and a CSR query (see ``_bound``)."""
+    """(bound_ms, bound_by, bytes, ops) for one K1, K2 or K12 call over the
+    [K, T] index and a CSR query (see ``_bound``)."""
     k, t = inc_T.shape
     b = offsets.numel() - 1
     nnz = int(offsets[-1])
@@ -359,16 +373,24 @@ def _bound(name, b, t, k, nnz, distinct, query, packed):
     words) on the CUDA cores or the dense 2·B·K·T product on the int8
     tensor cores, plus the per-(b, t) epilogue on the CUDA cores (K1: five
     lane compares, the witness bit and the ANDs, 8; K2: the masked lex-max
-    step, 6)."""
-    if name.startswith("deps_join"):
-        nbytes = distinct * t + t * (20 + 3) + query + 21 * b \
-            + (b * t // 8 if packed else b * t)
+    step, 6).  K12 (``fused_consult``) is both over two indexes: the named
+    rows of each, the slot data (txnId, ts, kind, status, active) and the
+    query once, both outputs, both overlaps and 8 + 6 ops per (b, t)."""
+    deps_bytes = b * t // 8 if packed else b * t
+    indexes = 1
+    if name == FUSED:
+        indexes = 2
+        nbytes = 2 * distinct * t + t * (40 + 3) + query + 21 * b + 20 * b \
+            + deps_bytes
+        epilogue = (8 + 6) * b * t
+    elif name.startswith("deps_join"):
+        nbytes = distinct * t + t * (20 + 3) + query + 21 * b + deps_bytes
         epilogue = 8 * b * t
     else:
         nbytes = distinct * t + t * (40 + 1) + query + 20 * b
         epilogue = 6 * b * t
-    or_words = nnz * t // 8
-    dense = 2 * b * k * t
+    or_words = indexes * nnz * t // 8
+    dense = indexes * 2 * b * k * t
     if or_words / CUDA_CORE_OPS_PER_S <= dense / INT8_TENSOR_OPS_PER_S:
         t_overlap, overlap_ops = or_words / CUDA_CORE_OPS_PER_S, or_words
     else:
@@ -385,6 +407,10 @@ def sync(ctx) -> None:
 
 
 def max_abs_err(torch, a, b) -> float:
+    """Exact-match error of an answer (a tensor, or K12's pair) against its
+    plain version's: the largest absolute difference, 0 when equal."""
+    if isinstance(a, tuple):
+        return max(max_abs_err(torch, x, y) for x, y in zip(a, b))
     need(a.shape == b.shape and a.dtype == b.dtype,
          f"shape/dtype mismatch {tuple(a.shape)} {a.dtype} vs "
          f"{tuple(b.shape)} {b.dtype}")
@@ -477,14 +503,15 @@ class KernelRecorder:
         self.check_s = 0.0
 
     def k1_calls(self) -> int:
-        return self.calls["deps_join"] + self.calls["deps_join_tk"]
+        return (self.calls["deps_join"] + self.calls["deps_join_tk"]
+                + self.calls[FUSED])
 
     def _check(self, name, args, kwargs, got):
         t0 = time.perf_counter()
-        kwargs = {k: v for k, v in kwargs.items() if k != "form"}
+        kwargs = {k: v for k, v in kwargs.items() if k not in ("form", "out")}
         want = getattr(self.k, f"{name}_plain")(*args, **kwargs)
         b, t, k = call_shape(name, args)
-        need(self.torch.equal(got, want),
+        need(max_abs_err(self.torch, got, want) == 0,
              f"{name} differs from its plain version at B={b} T={t} K={k}")
         self.checked += 1
         self.check_s += time.perf_counter() - t0
@@ -570,10 +597,12 @@ def _kernel_case(ctx, label, t, k, b, keys_per_txn, iters, packed=(False, True),
     """K1 (unpacked, and bit-packed where ``packed`` says) and K2 on one
     synthetic index and query batch, each in both forms (CSR, dense) over
     the [K, T] index and on the [T, K] index as it lies (K1d/K2d _tk, also
-    equal to the [K, T] answers); then the same batch through the consult
-    the device tier's service runs (``device_service.kernel.
-    ragged_consult_t``, the CSR batch as given), whose wrappers pick the
-    form (join_form), and through the one-shot consult
+    equal to the [K, T] answers), and K12 (both halves in one launch, the
+    CSR form; against its plain version and K1 + K2); then the same batch
+    through the consult the device tier's service runs
+    (``device_service.kernel.ragged_consult_t``, the CSR batch as given:
+    K12 on the CSR form, K1d and K2d on the dense, by join_form), and
+    through the one-shot consult
     (``ops.deps_kernels.consult``, the [T, K] index and the dense query),
     each with the launch counts zeroed just before and read just after;
     with ``wide`` the first query row takes that many random columns,
@@ -617,6 +646,11 @@ def _kernel_case(ctx, label, t, k, b, keys_per_txn, iters, packed=(False, True),
                                {"packed": pk}, iters, form=form))
         out.append(measure(ctx, "max_conflict", label, margs, {}, iters,
                            form=form))
+    fargs = (live_T, key_T, g["ts"], g["txn_id"], g["kind"], g["status"],
+             g["active"], g["offsets"], g["cols"], g["before"], g["qkind"])
+    for pk in packed:
+        out.append(measure_fused(ctx, f"{label}{'_packed' if pk else ''}",
+                                 fargs, {"packed": pk}, iters))
     K.reset_launches()                        # just before the call
     deps, cmax = ragged_consult_t(live_T, key_T, g["ts"], g["txn_id"],
                                   g["kind"], g["status"], g["active"],
@@ -628,9 +662,9 @@ def _kernel_case(ctx, label, t, k, b, keys_per_txn, iters, packed=(False, True),
          and torch.equal(cmax, K.max_conflict_plain(*margs)),
          f"[{label}] the service's consult differs from the plain versions")
     form = K.join_form(b, t, k, g["cols"].numel())
-    need(launches == {n: int(n in (kernel_name("deps_join", form),
-                                   kernel_name("max_conflict", form)))
-                      for n in K.LAUNCHES},
+    kernels = ((FUSED,) if form == "csr" else
+               ("deps_join_dense", "max_conflict_dense"))
+    need(launches == {n: int(n in kernels) for n in K.LAUNCHES},
          f"[{label}] auto ({form}) launched {launches}")
     ctx.setdefault("auto_launches", {})[label] = launches
 
@@ -754,6 +788,18 @@ def _dense_refused(ctx, label, jargs, margs):
     need(K.LAUNCHES == before, f"[{label}] a refused dense call launched")
 
 
+def method_floor_ms(ctx, iters) -> float:
+    """The timing method's own floor at this rep count: a one-element add
+    timed as the kernels are (the graph launch's fixed cost is spread over
+    ``iters``), once per count."""
+    torch = ctx["torch"]
+    if iters not in ctx["floors"]:
+        one = torch.zeros(1, device=ctx["dev"])
+        ctx["floors"][iters] = device_ms(torch, lambda: one.add_(1), iters,
+                                         ctx["flush"])
+    return ctx["floors"][iters]
+
+
 def measure(ctx, name, label, args, kwargs, iters, path="synthetic",
             form="auto"):
     """One kernel (``name``: the wrapper deps_join or max_conflict, in one
@@ -766,7 +812,9 @@ def measure(ctx, name, label, args, kwargs, iters, path="synthetic",
     for it, and the row is named by the kernel."""
     torch = ctx["torch"]
     from cassandra_accord_tpu_torch.ops import _kernels as K
-    kwargs = {k: v for k, v in kwargs.items() if k != "form"}
+    if name == FUSED:
+        return measure_fused(ctx, label, args, kwargs, iters, path)
+    kwargs = {k: v for k, v in kwargs.items() if k not in ("form", "out")}
     real = ctx["real"][name]
     b, t, k = call_shape(name, args)
     packed = kwargs.get("packed", False)
@@ -808,13 +856,7 @@ def measure(ctx, name, label, args, kwargs, iters, path="synthetic",
         errs.append(max_abs_err(torch, last[0], want))
     ms = device_ms(torch, call, iters, flush, check)
     warm_ms = device_ms(torch, call, iters, None, check)
-    # the method's own floor at this rep count: a one-element add timed the
-    # same way (the graph launch's fixed cost is spread over ``iters``)
-    floor_ms = ctx["floors"].get(iters)
-    if floor_ms is None:
-        one = torch.zeros(1, device=ctx["dev"])
-        floor_ms = ctx["floors"][iters] = device_ms(
-            torch, lambda: one.add_(1), iters, flush)
+    floor_ms = method_floor_ms(ctx, iters)
     err = max(errs)
     need(err == 0, f"{name} ({form}) [{label}] differs from its plain version: "
          f"max_abs_err {errs} (eager, then cold and warm graph replays)")
@@ -832,6 +874,88 @@ def measure(ctx, name, label, args, kwargs, iters, path="synthetic",
            "wrapper_host_us": wrapper_us, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "bytes": nbytes, "ops": ops}
+    ctx["rows"].append(row)
+    return row
+
+
+def _fused_halves(ctx, args, packed=False):
+    """K1 and K2 (the CSR form) on K12's arguments: the pair K12 replaces."""
+    live_T, key_T, ts, txn_id, kind, status, active, offsets, cols, before, \
+        qkind = args
+    return (ctx["real"]["deps_join"](live_T, txn_id, kind, status, active,
+                                     offsets, cols, before, qkind,
+                                     packed=packed, form="csr"),
+            ctx["real"]["max_conflict"](key_T, ts, txn_id, active, offsets,
+                                        cols, form="csr"))
+
+
+def measure_fused(ctx, label, args, kwargs, iters, path="synthetic"):
+    """K12 (``fused_consult``) at one shape, as ``measure``: exact against
+    its plain version and against K1 + K2 (the eager answers, then each
+    timing's graph replays), cold and warm ms, then K1 + K2 captured in one
+    graph in turns with it (K12, K1 + K2, K1 + K2, K12: ``k1_k2_ms``), the
+    plain version, the reference's two products (``library_ms``: the two
+    ``torch.matmul``s its two ``dot_general``s map to), the wrapper's host
+    cost and the bound."""
+    torch = ctx["torch"]
+    from cassandra_accord_tpu_torch.ops import _kernels as K
+    kwargs = {k: v for k, v in kwargs.items() if k not in ("form", "out")}
+    packed = kwargs.get("packed", False)
+    real = ctx["real"][FUSED]
+    b, t, k = call_shape(FUSED, args)
+    live_T, key_T, offsets, cols = args[0], args[1], args[7], args[8]
+    want = K.fused_consult_plain(*args, **kwargs)
+    got = real(*args, **kwargs)
+    halves = _fused_halves(ctx, args, packed)
+    sync(ctx)
+    errs = [max_abs_err(torch, got, want), max_abs_err(torch, halves, want)]
+    flush = ctx["flush"]
+    last = [None]
+
+    def call():
+        last[0] = real(*args, **kwargs)
+
+    def pair():
+        last[0] = _fused_halves(ctx, args, packed)
+
+    def check(replay):
+        sync(ctx)
+        errs.append(max_abs_err(torch, last[0], want))
+        for x, w in zip(last[0], want):
+            x.copy_(torch.bitwise_not(w))
+        replay()
+        sync(ctx)
+        errs.append(max_abs_err(torch, last[0], want))
+    turns = {"k12": [], "k1_k2": []}
+    for name in ("k12", "k1_k2", "k1_k2", "k12"):
+        turns[name].append(device_ms(torch, call if name == "k12" else pair,
+                                     iters, flush, check))
+    warm_ms = device_ms(torch, call, iters, None, check)
+    err = max(errs)
+    need(err == 0, f"{FUSED} [{label}] differs from its plain version or from "
+         f"K1 + K2: max_abs_err {errs} (eager K12, eager K1 + K2, then the "
+         "graph replays)")
+    floor_ms = method_floor_ms(ctx, iters)
+    wrapper_us = host_us(torch, call, iters)
+    pair_us = host_us(torch, pair, iters)
+    plain_ms = eager_ms(torch, lambda: K.fused_consult_plain(*args, **kwargs),
+                        max(3, iters // 4), flush)
+    qf = K.dense_query(offsets, cols, k).float()
+    livef, keyf = live_T.float(), key_T.float()
+    library_ms = device_ms(torch, lambda: (torch.matmul(qf, livef),
+                                           torch.matmul(qf, keyf)),
+                           max(3, iters // 4), flush)
+    del qf, livef, keyf
+    bound_ms, bound_by, nbytes, ops = join_bound(torch, FUSED, live_T,
+                                                 offsets, cols, packed=packed)
+    row = {"name": FUSED, "shape": label, "path": path, "B": b, "T": t,
+           "K": k, "nnz": int(offsets[-1]), "packed": bool(packed),
+           "max_abs_err": err, "ms": turns["k12"][0], "warm_ms": warm_ms,
+           "method_floor_ms": floor_ms, "wrapper_host_us": wrapper_us,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+           "ops": ops, "k12_ms_turns": turns["k12"],
+           "k1_k2_ms": turns["k1_k2"], "k1_k2_host_us": pair_us}
     ctx["rows"].append(row)
     return row
 
@@ -856,6 +980,9 @@ def phase_kernels(ctx):
                          2, 5, packed=(False,), wide=5000, split=True)
     # a K tail the [T, K] kernels take (80) and one they refuse (72)
     rows += _kernel_case(ctx, "T4096_K80_B33_2keys", 4096, 80, 33, 2, 20)
+    # a mesh rank's shard of the sharded step (MESH's T over its ranks)
+    rows += _kernel_case(ctx, "mesh_rank_T16384_K512_B256_2keys", 16384, 512,
+                         256, 2, 20)
     keys = ("name", "shape", "max_abs_err", "ms", "warm_ms",
             "method_floor_ms", "wrapper_host_us", "plain_ms", "library_ms",
             "bound_ms", "bound_by")
@@ -1011,7 +1138,7 @@ SWEEP = dict(config4=dict(T=65536, K=2048, B=64,
 def _sweep_point(ctx, label, key_T, g, rows):
     """K1 and K2 at one query batch in both forms: each form held against
     the plain version once, exactly, then cold-L2 device ms in turns (CSR,
-    dense, dense, CSR)."""
+    dense, dense, CSR); K12 held against its plain version once."""
     import numpy as np
     torch = ctx["torch"]
     from cassandra_accord_tpu_torch.ops import _kernels as K
@@ -1026,6 +1153,12 @@ def _sweep_point(ctx, label, key_T, g, rows):
                                offsets, cols), K.max_conflict_plain)}
     out = {"shape": label, "B": b, "T": t, "K": k, "n_cols": cols.numel(),
            "rule": K.join_form(b, t, k, cols.numel())}
+    fargs = (key_T, key_T, g["ts"], g["txn_id"], g["kind"], g["status"],
+             g["active"], offsets, cols, g["before"][:b], g["qkind"][:b])
+    got = ctx["real"][FUSED](*fargs)
+    sync(ctx)
+    need(max_abs_err(torch, got, K.fused_consult_plain(*fargs)) == 0,
+         f"sweep [{label}] K12 differs from its plain version")
     for name, (args, plain) in calls.items():
         real = ctx["real"][name]
         want = plain(*args)
@@ -1111,10 +1244,11 @@ def _kernel_sweep(ctx):
 
 
 def _kernel_columns(ctx):
-    """K1 (bool and bit-packed) and K2 on rows whose columns are -1, -K, K
-    and -K-1: the reference's densify names column c + K for c in [-K, -1]
-    and drops the rest, and so must the kernels and their plain versions,
-    which must agree exactly."""
+    """K1 (bool and bit-packed), K2 and K12 on rows whose columns are -1,
+    -K, K and -K-1: the reference's densify names column c + K for c in
+    [-K, -1] and drops the rest, and so must the kernels and their plain
+    versions, which must agree exactly; then K12 on an empty batch (B = 0:
+    empty answers, no launch)."""
     import numpy as np
     torch = ctx["torch"]
     from cassandra_accord_tpu_torch.ops import _kernels as K
@@ -1154,7 +1288,29 @@ def _kernel_columns(ctx):
         need(not bool(got["max_conflict"][4].any()),
              f"negative columns ({form}): a row of dropped columns found a "
              "conflict")
-    return {"T": t, "K": k, "rows": rows, "max_abs_err": errs}
+    fargs = (jargs[0], margs[0], margs[1], *jargs[1:])
+    for pk in (False, True):
+        got = ctx["real"][FUSED](*fargs, packed=pk)
+        want = K.fused_consult_plain(*fargs, packed=pk)
+        sync(ctx)
+        errs[f"{FUSED}{'_packed' if pk else ''}"] = [
+            max_abs_err(torch, got, want),
+            max_abs_err(torch, got, _fused_halves(ctx, fargs, pk))]
+    need(all(e == 0 for e in errs[FUSED] + errs[f"{FUSED}_packed"]),
+         f"negative columns: K12 differs from its plain version or K1 + K2 "
+         f"{errs}")
+    empty = (*fargs[:7], fargs[7][:1].clone(), fargs[8], fargs[9][:0],
+             fargs[10][:0])
+    launched = dict(K.LAUNCHES)
+    for pk in (False, True):
+        deps, max_lanes = ctx["real"][FUSED](*empty, packed=pk)
+        sync(ctx)
+        need(tuple(deps.shape) == (0, t // 8 if pk else t)
+             and tuple(max_lanes.shape) == (0, 5),
+             f"empty batch: K12 answered {deps.shape}, {max_lanes.shape}")
+    need(K.LAUNCHES == launched, "empty batch: K12 launched")
+    return {"T": t, "K": k, "rows": rows, "max_abs_err": errs,
+            "empty_batch": "no launch"}
 
 
 # K1d/K2d on [K, T] (csrc/dense_join.cu) at their edges, forced dense: T =
@@ -1225,8 +1381,8 @@ def _parity(ctx):
     """The two inputs on which the port once differed from the reference,
     in every form on the card, each held exactly against the plain
     versions: kind
-    codes outside the witness table in K1 (CSR), K1d on [K, T] and K1d on
-    [T, K]; signed incidence bytes through the one-shot consult on the
+    codes outside the witness table in K1 (CSR), K1d on [K, T], K1d on
+    [T, K] and K12; signed incidence bytes through the one-shot consult on the
     [T, K] kernels (K = 64 and 512) and on its CSR route (K = 72, the
     query's values beside its columns), with the launches of each."""
     import numpy as np
@@ -1258,6 +1414,12 @@ def _parity(ctx):
     kinds["tk"] = max_abs_err(torch, ctx["real"]["deps_join_tk"](
         up(live), up(lanes), up(kind), up(status), up(active), up(q),
         up(before), up(qkind)), want)
+    fargs = (jargs[0], up((key_inc != 0).T.astype(np.uint8)), up(ts),
+             *jargs[1:])
+    kinds[FUSED] = max(max_abs_err(torch, ctx["real"][FUSED](*fargs)[0],
+                                   want),
+                       max_abs_err(torch, ctx["real"][FUSED](*fargs),
+                                   K.fused_consult_plain(*fargs)))
     sync(ctx)
     need(all(e == 0 for e in kinds.values()),
          f"kind codes outside the table: a K1 form differs {kinds}")
@@ -1358,8 +1520,7 @@ def phase_service(ctx):
     wall = time.perf_counter() - t0 - chk.check_s
     launches = dict(K.LAUNCHES)
     need(answered == windows * b, f"answered {answered}")
-    need(launches["deps_join"] > 0 and launches["max_conflict"] > 0,
-         f"service launched no kernel: {launches}")
+    need_csr_only(launches, "the service")
     need(chk.k1_calls() == k1_launches(launches), "uncounted launch")
     checked = chk.checked
     st = svc.stats()
@@ -1384,7 +1545,7 @@ def phase_burn(ctx):
     kw = dict(resolver_kind="tpu", tpu_tier="device", tpu_walk_max=0,
               tpu_walk_width=0, device=ctx["dev"])
     # the main path (the service on the card), the resolver's one-shot
-    # device path (no service: one K1 and one K2 launch per consult batch)
+    # device path (no service: one K12 launch per consult batch)
     # and the host backend, which both must equal
     runs = {"torch": dict(tpu_service="on", tpu_service_backend="torch"),
             "oneshot": dict(tpu_service="off"),
@@ -1605,7 +1766,7 @@ def phase_cli(ctx):
     from tools_torch import explain
     t0 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
-    runs, totals = {}, {"deps_join": 0, "max_conflict": 0}
+    runs, totals = {}, {FUSED: 0}
     try:
         for label, seed, ops, env, extra in CLI["runs"]:
             host, host_prov, host_s, _ = _cli_run(ctx, tmp, label, seed, ops,
@@ -1841,7 +2002,7 @@ def _stdio_run(ctx, packets, backend):
 
 def phase_maelstrom(ctx):
     t0 = time.perf_counter()
-    runs, totals = {}, {"deps_join": 0, "max_conflict": 0}
+    runs, totals = {}, {FUSED: 0}
     for seed, nodes, partitions in MAELSTROM["runs"]:
         host, host_s, _, _, _ = _maelstrom_run(ctx, seed, nodes, partitions,
                                                "host")
@@ -3064,8 +3225,7 @@ def phase_replay(ctx):
                         need(tiers[tier]["parity_checked"] > 0,
                              f"{label}: {tier} parity_checked 0")
                 need(tiers["device"]["device_consults"] > 0 and
-                     all(tiers["device"]["launches"][n] > 0
-                         for n in CSR_KERNELS),
+                     tiers["device"]["launches"][FUSED] > 0,
                      f"{label}: the device tier made no device consult")
                 r["calibrated"] = dict(tpu_resolver._CALIBRATED)
                 if key_count > 6:
@@ -3161,8 +3321,7 @@ def phase_bench(ctx):
             walls[fn] = time.perf_counter() - w0
         sync(ctx)
         launches = dict(K.LAUNCHES)          # just after them
-    need(all(launches[n] > 0 for n in CSR_KERNELS),
-         f"bench launched {launches}")
+    need(launches[FUSED] > 0, f"bench launched {launches}")
     need(chk.k1_calls() == k1_launches(launches),
          "bench: uncounted launch")
     need(chk.checked > 0, "bench: no kernel call checked")
@@ -3180,11 +3339,14 @@ def phase_bench(ctx):
 ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "warm_ms", "method_floor_ms", "wrapper_host_us", "shape", "path", "B",
             "T", "K", "nnz", "packed")
+# K12's rows also carry K1 + K2 timed in turns with it in the same call
+FUSED_KEYS = ("k12_ms_turns", "k1_k2_ms", "k1_k2_host_us")
 
 
 def kernels_line(ctx):
     """One entry per kernel and form (K1, K2 in the CSR form; K1d, K2d in
-    the dense form on [K, T] and on [T, K]): the main path's (the burn's;
+    the dense form on [K, T] and on [T, K]; K12, both halves in one launch,
+    the service's window): the main path's (the burn's;
     for the [T, K] kernels the one-shot consult of config 4's batch)
     launch count and the numbers at the largest call it made (the dense
     kernels: at config 4, their own path: the service's or the one-shot
@@ -3228,11 +3390,12 @@ def kernels_line(ctx):
         label = "mesh_store_T{T}_K{K}_B{B}".format(**MESH)
         for name, args, kwargs in ctx["mesh_consult"]:
             calls.append((name, label, args, kwargs, "mesh"))
-    # each path's largest call: a [K, T] one in both forms (the one
-    # join_form picks, which launched on the path, and the other), a
-    # [T, K] one on its kernel
+    # each path's largest call: a [K, T] K1 or K2 one in both forms (the
+    # one join_form picks, which launched on the path, and the other), a
+    # [T, K] one on its kernel, a K12 one (with K1 + K2 in turns)
     for name, label, args, kwargs, path in calls:
-        for form in (("auto",) if name.endswith("_tk") else FORMS):
+        for form in (("auto",) if name.endswith("_tk") or name == FUSED
+                     else FORMS):
             if form != "dense" or args[0].shape[1] % 16 == 0:
                 measure(ctx, name, label, args, kwargs, 20, path, form=form)
     burn = ctx.get("burn_launches", {})
@@ -3243,7 +3406,7 @@ def kernels_line(ctx):
             continue
         # the headline: the burn's largest call for the CSR kernels (the
         # main path), config 4 for the dense ones (the burn never takes them)
-        if name in CSR_KERNELS:
+        if name in CSR_KERNELS + (FUSED,):
             head = next((r for r in rows if r["path"] == "burn"), rows[0])
         else:
             head = next((r for r in rows if r["shape"] == CONFIG4), rows[0])
@@ -3253,6 +3416,8 @@ def kernels_line(ctx):
         own = oneshot.get(CONFIG4, {}) if name in TK_KERNELS else burn
         e = {"name": name, "route": "cuda", "source": SOURCES[name],
              "replaces": REPLACES[name],
+             **({"also_replaces": ALSO_REPLACES[name]}
+                if name in ALSO_REPLACES else {}),
              "launches": own.get(name, 0),
              "launches_path": ("one-shot consult, config 4"
                                if name in TK_KERNELS else "burn"),
@@ -3273,8 +3438,9 @@ def kernels_line(ctx):
                   for case, v in ctx.get("auto_launches", {}).items()},
              "kernels_oneshot_launches":
                  {case: v.get(name, 0) for case, v in oneshot.items()}}
-        e.update({k: head[k] for k in ROW_KEYS})
-        e["shapes"] = [dict({k: r[k] for k in ROW_KEYS},
+        keys = ROW_KEYS + (FUSED_KEYS if name == FUSED else ())
+        e.update({k: head[k] for k in keys})
+        e["shapes"] = [dict({k: r[k] for k in keys},
                             main_path_launches=burn.get(name, 0)
                             if r["path"] == "burn" else 0)
                        for r in rows if r is not head]

@@ -13,6 +13,8 @@ import pytest
 import torch
 
 import bench_torch
+from cassandra_accord_tpu_torch.device_service.kernel import (
+    ragged_consult_t, to_host)
 from cassandra_accord_tpu_torch.entry import entry
 from cassandra_accord_tpu_torch.models import conflict_graph as cg
 from cassandra_accord_tpu_torch.ops import _kernels
@@ -467,7 +469,7 @@ def test_two_gloo_ranks_on_the_card_equal_single_card(cuda):
 
 def test_calibrated_threshold_on_card_is_finite(cuda):
     """The shipped cost model's threshold, measured on the card: one consult
-    round trip through K1/K2 times the host tier's element rate."""
+    round trip through K12 times the host tier's element rate."""
     import math
     from cassandra_accord_tpu_torch.impl import tpu_resolver
     got = tpu_resolver._calibrate_threshold(cuda)
@@ -477,8 +479,8 @@ def test_calibrated_threshold_on_card_is_finite(cuda):
 
 def test_maelstrom_workload_on_card_equals_cpu(cuda, monkeypatch):
     """A 3-node, 20-op Maelstrom run with the device tier through the
-    service: on the card (K1/K2 launched) equal to the same run on the
-    CPU."""
+    service: on the card (K12 launched, one launch a window, and no K1 or
+    K2) equal to the same run on the CPU."""
     from cassandra_accord_tpu_torch.maelstrom.runner import run_workload
     for k, v in dict(ACCORD_RESOLVER="tpu", ACCORD_TPU_TIER="device",
                      ACCORD_TPU_WALK_MAX="0", ACCORD_TPU_WALK_WIDTH="0",
@@ -492,7 +494,8 @@ def test_maelstrom_workload_on_card_equals_cpu(cuda, monkeypatch):
                                 partition_interval_s=None)
         launches = dict(_kernels.LAUNCHES)
     assert out["cuda"] == out["cpu"]
-    assert launches["deps_join"] > 0 and launches["max_conflict"] > 0
+    assert launches["fused_consult"] > 0
+    assert launches["deps_join"] == 0 and launches["max_conflict"] == 0
 
 
 def test_bench_kernel_on_card_equals_host_tier(cuda, monkeypatch):
@@ -782,3 +785,120 @@ def test_negative_kinds_in_every_k1_form_equal_plain(cuda):
     tj = (inc, g["txn_id"], g["kind"], g["status"], g["active"], q,
           g["before"], g["qkind"])
     assert torch.equal(_kernels.deps_join_tk(*tj), want)
+
+
+# ---------------------------------------------------------------------------
+# K12: both halves of the service's window in one launch (csrc/consult.cu)
+# ---------------------------------------------------------------------------
+
+def _fused_args(g, seed):
+    """K12's arguments on _inputs' index (``live``) and a second index over
+    the same slots (``key``: ``live`` and more)."""
+    k, t = g["inc"].shape
+    extra = np.random.default_rng(seed).random((k, t)) < 0.03
+    key = g["inc"] | torch.from_numpy(extra.astype(np.uint8)).to(g["inc"].device)
+    return (g["inc"], key, g["ts"], g["txn_id"], g["kind"], g["status"],
+            g["active"], g["offsets"], g["cols"], g["before"], g["qkind"])
+
+
+def _fused_halves(args, packed):
+    live_T, key_T, ts, txn_id, kind, status, active, offsets, cols, before, \
+        qkind = args
+    return (_kernels.deps_join(live_T, txn_id, kind, status, active, offsets,
+                               cols, before, qkind, packed=packed, form="csr"),
+            _kernels.max_conflict(key_T, ts, txn_id, active, offsets, cols,
+                                  form="csr"))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_fused_consult_equals_plain_and_k1_k2(cuda, case):
+    """K12 at every CASES shape, bool and bit-packed where T % 8 == 0, equal
+    to its plain version and to K1 + K2 bit for bit, one launch a call."""
+    t, k, b, kw = CASES[case]
+    args = _fused_args(_inputs(np.random.default_rng(t), t, k, b, cuda, **kw),
+                       t + 1)
+    for packed in ((False, True) if t % 8 == 0 else (False,)):
+        before = dict(_kernels.LAUNCHES)
+        got = _kernels.fused_consult(*args, packed=packed)
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES["fused_consult"] == \
+            before["fused_consult"] + 1
+        want = _kernels.fused_consult_plain(*args, packed=packed)
+        for a, w, h in zip(got, want, _fused_halves(args, packed)):
+            assert torch.equal(a, w) and torch.equal(a, h)
+
+
+@pytest.mark.parametrize("odd", [False, True])
+def test_fused_consult_with_kinds_and_columns_outside_equals_plain(cuda, odd):
+    """Kind codes outside the witness table (wrapped once, then clamped)
+    and columns -7, -1, K and K + 100 in K12, against its plain version."""
+    t, k, b = 2064, 32, 16
+    g = _inputs(np.random.default_rng(17), t, k, b, cuda, width=6, oob=True)
+    if odd:
+        rng = np.random.default_rng(19)
+        g["kind"] = torch.from_numpy(rng.choice(
+            [-1, -6, -7, -128, 9, 100, 127, 0, 3], t).astype(np.int8)).to(cuda)
+        g["qkind"] = torch.from_numpy(rng.choice(
+            [-1, -7, 100, 1, 4], b).astype(np.int8)).to(cuda)
+    args = _fused_args(g, 23)
+    for packed in (False, True):
+        got = _kernels.fused_consult(*args, packed=packed)
+        for a, w in zip(got, _kernels.fused_consult_plain(*args, packed=packed)):
+            assert torch.equal(a, w)
+
+
+def test_fused_consult_replays_in_a_cuda_graph(cuda):
+    """K12 with one block per row group and several (its counters' memset a
+    node of the graph), captured in one CUDA graph: every replay's answers
+    equal the plain version, the outputs overwritten before each replay."""
+    sets = [_fused_args(_inputs(np.random.default_rng(t), t, 64, 21, cuda),
+                        t) for t in (120, 256, 6147, 65536)]
+    want = [_kernels.fused_consult_plain(*a) for a in sets]
+    got = []
+
+    def body():
+        got[:] = [_kernels.fused_consult(*a) for a in sets]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        body()
+    for _ in range(3):
+        for outs, wants in zip(got, want):
+            for out, w in zip(outs, wants):
+                out.copy_(torch.bitwise_not(w))
+        graph.replay()
+        torch.cuda.synchronize()
+        for outs, wants in zip(got, want):
+            for out, w in zip(outs, wants):
+                assert torch.equal(out, w)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_service_window_is_one_fused_launch(cuda, packed):
+    """The service's consult on the CSR form is one K12 launch (K1 and K2
+    not launched) and one read-back equal to the plain versions; on the
+    dense form it is K1d and K2d into the same one buffer."""
+    for width, kernels in ((3, {"fused_consult"}),
+                           (128, {"deps_join_dense", "max_conflict_dense"})):
+        t, k, b = 8192, 256, 64
+        g = _inputs(np.random.default_rng(width), t, k, b, cuda, width=width)
+        args = _fused_args(g, 29)
+        live_T, key_T, ts, txn_id, kind, status, active, offsets, cols, \
+            before, qkind = args
+        assert _kernels.join_form(b, t, k, cols.numel()) == \
+            ("csr" if width == 3 else "dense")
+        launched = dict(_kernels.LAUNCHES)
+        deps, lanes = to_host(*ragged_consult_t(
+            live_T, key_T, ts, txn_id, kind, status, active, cols, offsets,
+            before, qkind, packed=packed))
+        assert {n for n, v in _kernels.LAUNCHES.items()
+                if v != launched[n]} == kernels
+        assert all(_kernels.LAUNCHES[n] == launched[n] + 1 for n in kernels)
+        want = _kernels.fused_consult_plain(*args, packed=packed)
+        assert np.array_equal(deps, want[0].cpu().numpy())
+        assert np.array_equal(lanes, want[1].cpu().numpy())

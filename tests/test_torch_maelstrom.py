@@ -45,7 +45,7 @@ def test_run_workload_on_device_tier_equals_reference(seed, nodes, partitions,
                                                       monkeypatch):
     for k, v in dict(DEVICE_TIER, ACCORD_DEVICE="cpu").items():
         monkeypatch.setenv(k, v)
-    calls = {"deps_join": 0, "max_conflict": 0}
+    calls = {"deps_join": 0, "max_conflict": 0, "fused_consult": 0}
 
     def counted(name, real):
         def call(*args, **kwargs):
@@ -60,8 +60,10 @@ def test_run_workload_on_device_tier_equals_reference(seed, nodes, partitions,
                        partition_interval_s=partitions)
     assert got == want
     assert got["ok"] == 40
-    # the port's answers came from its kernel wrappers (plain versions here)
-    assert calls["deps_join"] > 0 and calls["max_conflict"] > 0
+    # the port's answers came from its kernel wrappers (plain versions
+    # here): the service's window, both halves in one call (K12)
+    assert calls["fused_consult"] > 0
+    assert calls["deps_join"] == 0 and calls["max_conflict"] == 0
 
 
 def _stdio(env, packets=STDIO_PACKETS,
