@@ -314,7 +314,6 @@ def bench_kernel(t, k=512, b=256, iters=20, keys_per_txn=2, packed=False):
     answer (deps mask and max lanes) is then held against the host tier's."""
     import torch
     from cassandra_accord_tpu_torch import native
-    from cassandra_accord_tpu_torch.observe.device import kernel_consult_metrics
     from cassandra_accord_tpu_torch.ops import deps_kernels as dk
     from cassandra_accord_tpu_torch.ops.graph_state import INVALIDATED
     dev = device()
@@ -378,9 +377,6 @@ def bench_kernel(t, k=512, b=256, iters=20, keys_per_txn=2, packed=False):
            "host_python_scalar_queries_per_sec": round(py_qps, 1),
            "device_vs_host_numpy": round(dev_qps / np_qps, 2),
            "answers_checked": iters * b}
-    # roofline block (index bytes, join TFLOP/s, share of the card's peak)
-    # from the port's device-metrics source, with the H100's peaks
-    out.update(kernel_consult_metrics(t, k, b, dev_qps))
     return out
 
 
@@ -425,7 +421,6 @@ def bench_service(t, k=512, b=64, keys_per_txn=2, dirty_rows_per_window=8):
     one-shot, is then held against the host tier's on the same rows."""
     from cassandra_accord_tpu_torch.device_service.service import \
         DeviceConsultService
-    from cassandra_accord_tpu_torch.observe.device import kernel_consult_metrics
     dev = device()
     windows = 12 if t <= 8192 else (8 if t <= 32768 else 4)
     rng = np.random.default_rng(7)
@@ -507,9 +502,6 @@ def bench_service(t, k=512, b=64, keys_per_txn=2, dirty_rows_per_window=8):
            "index_full_uploads": stats["index_full_uploads"],
            "jit_shapes": stats["jit_shapes"],
            "answers_checked": windows * b + n_oneshot}
-    # the service joins over the occupancy view (== T here; the synthetic
-    # index is fully occupied)
-    out.update(kernel_consult_metrics(t, k, b, batched_qps))
     return out
 
 
@@ -873,8 +865,8 @@ def consult_service_stage(burn_ops: int = 300,
 
 
 def kernels():
-    """``kernel_scaling``: each entry carries the roofline block (join
-    TFLOP/s and its share of the card's CUDA-core peak)."""
+    """``kernel_scaling``: the consult's rate at each shape, beside the host
+    tiers' on the same index."""
     return [bench_kernel(4096), bench_kernel(65536),
             bench_kernel(65536, packed=True),
             # BASELINE config 4: range txns, 1k keys/txn wide join

@@ -36,6 +36,7 @@ from typing import Dict, Iterable, Optional, Set, Tuple
 import numpy as np
 import torch
 
+from ..observe.profiler import span
 from .batch import pow2_bucket
 
 # row-refresh chunk cap: a bigger dirty set loops over capped chunks or tips
@@ -120,7 +121,8 @@ class DoubleBufferedIndex:
 
     def _full_upload(self, host: Dict[str, np.ndarray],
                      t_view: int, k_view: int) -> None:
-        self.front = front_from_host(host, t_view, k_view, self.device)
+        with span("accord.index.full_upload"):
+            self.front = front_from_host(host, t_view, k_view, self.device)
         self.view = (t_view, k_view)
         self.generation += 1
         self.full_uploads += 1
@@ -133,33 +135,41 @@ class DoubleBufferedIndex:
         ``dirty_rows=None`` means unknown provenance (first sight / capacity
         growth / host rebuild): full upload.  ``t_used``/``k_used`` are the
         resolver's slot high-watermarks; the view covers their pow2 buckets."""
-        t_cap, k_cap = host["key_inc"].shape
-        t_view = pow2_bucket(max(t_used, 1), T_VIEW_FLOOR, t_cap)
-        k_view = pow2_bucket(max(k_used, 1), K_VIEW_FLOOR, k_cap)
-        # views never shrink: shrinking would churn shapes on sawtooth
-        # occupancy, and padding rows are inactive anyway
-        t_view = max(t_view, self.view[0]) if self.view[0] <= t_cap else t_view
-        k_view = max(k_view, self.view[1]) if self.view[1] <= k_cap else k_view
-        rows = None if dirty_rows is None else sorted(dirty_rows)
-        if (self.front is None or self.view != (t_view, k_view) or rows is None
-                or len(rows) >= max(1, int(t_view * self.full_fraction))):
-            self._full_upload(host, t_view, k_view)
-            return
-        if not rows:
-            return
-        bufs = self.front
-        dev = self.device
-        for lo in range(0, len(rows), ROW_REFRESH_CAP):
-            chunk = np.asarray(rows[lo:lo + ROW_REFRESH_CAP], dtype=np.int64)
-            r_pad = pow2_bucket(len(chunk), ROW_REFRESH_FLOOR, ROW_REFRESH_CAP)
-            vals = {name: _to(dev, host[name][chunk].astype(dt, copy=False))
-                    for name, dt in _ROW_DTYPES.items()}
-            bufs = apply_rows(
-                bufs, _to(dev, chunk),
-                _to(dev, _incidence_T(host["live_inc"][chunk, :k_view])),
-                _to(dev, _incidence_T(host["key_inc"][chunk, :k_view])), vals)
-            self.jit_shapes.add(("rows", r_pad, t_view, k_view))
-            self.rows_uploaded += len(chunk)
-        self.front = bufs          # swap: consults from here on see the update
-        self.generation += 1
-        self.incremental_refreshes += 1
+        with span("accord.index.refresh"):
+            t_cap, k_cap = host["key_inc"].shape
+            t_view = pow2_bucket(max(t_used, 1), T_VIEW_FLOOR, t_cap)
+            k_view = pow2_bucket(max(k_used, 1), K_VIEW_FLOOR, k_cap)
+            # views never shrink: shrinking would churn shapes on sawtooth
+            # occupancy, and padding rows are inactive anyway
+            if self.view[0] <= t_cap:
+                t_view = max(t_view, self.view[0])
+            if self.view[1] <= k_cap:
+                k_view = max(k_view, self.view[1])
+            rows = None if dirty_rows is None else sorted(dirty_rows)
+            if (self.front is None or self.view != (t_view, k_view)
+                    or rows is None
+                    or len(rows) >= max(1, int(t_view * self.full_fraction))):
+                self._full_upload(host, t_view, k_view)
+                return
+            if not rows:
+                return
+            bufs = self.front
+            dev = self.device
+            for lo in range(0, len(rows), ROW_REFRESH_CAP):
+                chunk = np.asarray(rows[lo:lo + ROW_REFRESH_CAP],
+                                   dtype=np.int64)
+                r_pad = pow2_bucket(len(chunk), ROW_REFRESH_FLOOR,
+                                    ROW_REFRESH_CAP)
+                vals = {n: _to(dev, host[n][chunk].astype(dt, copy=False))
+                        for n, dt in _ROW_DTYPES.items()}
+                rows_d = _to(dev, chunk)
+                live_t, key_t = (
+                    _to(dev, _incidence_T(host[name][chunk, :k_view]))
+                    for name in ("live_inc", "key_inc"))
+                with span("accord.index.apply_rows"):
+                    bufs = apply_rows(bufs, rows_d, live_t, key_t, vals)
+                self.jit_shapes.add(("rows", r_pad, t_view, k_view))
+                self.rows_uploaded += len(chunk)
+            self.front = bufs      # swap: consults from here on see the update
+            self.generation += 1
+            self.incremental_refreshes += 1

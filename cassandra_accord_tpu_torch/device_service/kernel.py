@@ -30,6 +30,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..observe.profiler import span
 from ..ops import _kernels
 
 
@@ -39,22 +40,23 @@ def ragged_consult_t(live_T, key_T, ts, txn_id, kind, status, active,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(deps [B, T] bool or [B, T/8] uint8, max_lanes [B, 5] int32), views
     of one buffer."""
-    _kernels._check_form(form)
-    k, t = live_T.shape
-    b = offsets.numel() - 1
-    if form == "auto":
-        form = _kernels.join_form(b, t, k, flat_cols.numel())
-    if form == "csr":
-        return _kernels.fused_consult(live_T, key_T, ts, txn_id, kind, status,
-                                      active, offsets, flat_cols, before,
-                                      qkind, packed=packed)
-    deps, max_lanes = _kernels.consult_out(b, t, packed, live_T.device)
-    _kernels.deps_join(live_T, txn_id, kind, status, active, offsets,
-                       flat_cols, before, qkind, packed=packed, form=form,
-                       out=deps)
-    _kernels.max_conflict(key_T, ts, txn_id, active, offsets, flat_cols,
-                          form=form, out=max_lanes)
-    return deps, max_lanes
+    with span("accord.kernel.consult"):
+        _kernels._check_form(form)
+        k, t = live_T.shape
+        b = offsets.numel() - 1
+        if form == "auto":
+            form = _kernels.join_form(b, t, k, flat_cols.numel())
+        if form == "csr":
+            return _kernels.fused_consult(live_T, key_T, ts, txn_id, kind,
+                                          status, active, offsets, flat_cols,
+                                          before, qkind, packed=packed)
+        deps, max_lanes = _kernels.consult_out(b, t, packed, live_T.device)
+        _kernels.deps_join(live_T, txn_id, kind, status, active, offsets,
+                           flat_cols, before, qkind, packed=packed, form=form,
+                           out=deps)
+        _kernels.max_conflict(key_T, ts, txn_id, active, offsets, flat_cols,
+                              form=form, out=max_lanes)
+        return deps, max_lanes
 
 
 def to_host(deps: torch.Tensor, max_lanes: torch.Tensor
@@ -62,17 +64,20 @@ def to_host(deps: torch.Tensor, max_lanes: torch.Tensor
     """``ragged_consult_t``'s answer as numpy arrays: the buffer both views
     lie in (``_kernels.consult_out``: the lanes at its start, the deps at
     its end) comes back in one copy and one sync (none for CPU buffers)."""
-    start = deps.storage_offset() * deps.element_size()
-    size = start + deps.numel() * deps.element_size()
-    if (deps.untyped_storage().data_ptr()
-            != max_lanes.untyped_storage().data_ptr()
-            or max_lanes.storage_offset() != 0 or not deps.is_contiguous()
-            or not max_lanes.is_contiguous()):
-        raise ValueError("to_host takes the views of one consult buffer "
-                         "(_kernels.consult_out)")
-    host = max_lanes.view(torch.uint8).as_strided((size,), (1,)).cpu().numpy()
-    lanes = host[:max_lanes.numel() * 4].view(np.int32)
-    out = host[start:]
-    if deps.dtype == torch.bool:
-        out = out.view(np.bool_)
-    return out.reshape(tuple(deps.shape)), lanes.reshape(tuple(max_lanes.shape))
+    with span("accord.kernel.to_host"):
+        start = deps.storage_offset() * deps.element_size()
+        size = start + deps.numel() * deps.element_size()
+        if (deps.untyped_storage().data_ptr()
+                != max_lanes.untyped_storage().data_ptr()
+                or max_lanes.storage_offset() != 0
+                or not deps.is_contiguous() or not max_lanes.is_contiguous()):
+            raise ValueError("to_host takes the views of one consult buffer "
+                             "(_kernels.consult_out)")
+        host = max_lanes.view(torch.uint8).as_strided((size,), (1,)) \
+            .cpu().numpy()
+        lanes = host[:max_lanes.numel() * 4].view(np.int32)
+        out = host[start:]
+        if deps.dtype == torch.bool:
+            out = out.view(np.bool_)
+        return (out.reshape(tuple(deps.shape)),
+                lanes.reshape(tuple(max_lanes.shape)))

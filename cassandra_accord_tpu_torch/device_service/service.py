@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..observe.profiler import span
 from .batch import ConsultBatch, build_batch, pow2_bucket, split_rows
 from .index import DoubleBufferedIndex
 
@@ -217,10 +218,11 @@ class DeviceConsultService:
                 fut._fulfil(None)
             return
         for chunk in split_rows(window.pending, self.max_window):
-            batch = build_batch(
-                [p[0] for p in chunk], [p[1] for p in chunk],
-                [p[2] for p in chunk], [p[3] for p in chunk],
-                row_cap=self.max_window)
+            with span("accord.service.build_batch"):
+                batch = build_batch(
+                    [p[0] for p in chunk], [p[1] for p in chunk],
+                    [p[2] for p in chunk], [p[3] for p in chunk],
+                    row_cap=self.max_window)
             deps, max_lanes = self._dispatch(batch, window.buffers)
             for i, (*_spec, fut) in enumerate(chunk):
                 fut._fulfil((deps[i], max_lanes[i]))
@@ -246,11 +248,12 @@ class DeviceConsultService:
         lanes_out = []
         idxs = list(range(len(rows)))
         for chunk in split_rows(idxs, self.max_window):
-            batch = build_batch([rows[i] for i in chunk],
-                                [tuple(int(v) for v in before[i])
-                                 for i in chunk],
-                                [int(kind[i]) for i in chunk],
-                                row_cap=self.max_window)
+            with span("accord.service.build_batch"):
+                batch = build_batch([rows[i] for i in chunk],
+                                    [tuple(int(v) for v in before[i])
+                                     for i in chunk],
+                                    [int(kind[i]) for i in chunk],
+                                    row_cap=self.max_window)
             deps, max_lanes = self._dispatch(batch, buffers)
             deps_out.append(deps)
             lanes_out.append(max_lanes)
@@ -261,47 +264,46 @@ class DeviceConsultService:
         """One launch: ragged batch in, (deps [rows, T] bool, max_lanes
         [rows, 5]) out — counters incremented ONCE PER SUBMITTED CONSULT
         (batch.rows), never per launch (the r03 bookkeeping fix)."""
-        if self._profiler is None:
-            node = getattr(getattr(self.resolver, "store", None), "node", None)
-            self._profiler = getattr(node, "profiler", None) or False
-        t0 = time.perf_counter()
-        compiled = False
-        kt_shape = None
-        if buffers is not None:
-            k, t = buffers["live_T"].shape
-            kt_shape = (t, k)
-            n_shapes = len(self.jit_shapes)
-            deps, max_lanes = self._dispatch_torch(batch, buffers)
-            compiled = len(self.jit_shapes) > n_shapes
-            self.resolver.device_consults += batch.rows
-        else:
-            h = self.resolver.host_index()
-            q = batch.densify(h["key_inc"].shape[1])
-            # the deterministic host fallback IS the resolver's own host tier
-            # (it does its own per-consult counting)
-            deps, max_lanes = self.resolver._consult_host(
-                q, batch.before[:batch.rows].astype(np.int64),
-                batch.kind[:batch.rows])
-        dt = time.perf_counter() - t0
-        self.batches += 1
-        self.batch_size_hist[batch.rows] = \
-            self.batch_size_hist.get(batch.rows, 0) + 1
-        self.dispatch_seconds += dt
-        self.dispatch_count += 1
-        self.dispatch_max_seconds = max(self.dispatch_max_seconds, dt)
-        self.occupancy_sum += batch.rows
-        self._sample(0, batch.rows)
-        if self._profiler and buffers is not None:
-            # launch breakdown for the wall profiler: dispatch RTT, h2d
-            # (the ragged batch arrays) and d2h (densified results) bytes,
-            # and whether this launch used a new shape.  Wall-plane
-            # only — nothing here feeds the deterministic registry.
-            h2d = (batch.flat_cols.nbytes + batch.offsets.nbytes
-                   + batch.before.nbytes + batch.kind.nbytes)
-            self._profiler.on_device_launch(
-                batch.rows, dt, h2d, deps.nbytes + max_lanes.nbytes,
-                compiled, shape=kt_shape)
-        return deps[:batch.rows], max_lanes[:batch.rows]
+        with span("accord.service.dispatch"):
+            if self._profiler is None:
+                node = getattr(getattr(self.resolver, "store", None), "node",
+                               None)
+                self._profiler = getattr(node, "profiler", None) or False
+            t0 = time.perf_counter()
+            compiled = False
+            if buffers is not None:
+                n_shapes = len(self.jit_shapes)
+                deps, max_lanes = self._dispatch_torch(batch, buffers)
+                compiled = len(self.jit_shapes) > n_shapes
+                self.resolver.device_consults += batch.rows
+            else:
+                h = self.resolver.host_index()
+                q = batch.densify(h["key_inc"].shape[1])
+                # the deterministic host fallback IS the resolver's own host
+                # tier (it does its own per-consult counting)
+                deps, max_lanes = self.resolver._consult_host(
+                    q, batch.before[:batch.rows].astype(np.int64),
+                    batch.kind[:batch.rows])
+            dt = time.perf_counter() - t0
+            self.batches += 1
+            self.batch_size_hist[batch.rows] = \
+                self.batch_size_hist.get(batch.rows, 0) + 1
+            self.dispatch_seconds += dt
+            self.dispatch_count += 1
+            self.dispatch_max_seconds = max(self.dispatch_max_seconds, dt)
+            self.occupancy_sum += batch.rows
+            self._sample(0, batch.rows)
+            if self._profiler and buffers is not None:
+                # launch breakdown for the wall profiler: dispatch RTT, h2d
+                # (the ragged batch arrays) and d2h (densified results)
+                # bytes, and whether this launch used a new shape.  Wall-plane
+                # only — nothing here feeds the deterministic registry.
+                h2d = (batch.flat_cols.nbytes + batch.offsets.nbytes
+                       + batch.before.nbytes + batch.kind.nbytes)
+                self._profiler.on_device_launch(
+                    batch.rows, dt, h2d, deps.nbytes + max_lanes.nbytes,
+                    compiled)
+            return deps[:batch.rows], max_lanes[:batch.rows]
 
     def _dispatch_torch(self, batch: ConsultBatch, buffers):
         from .kernel import ragged_consult_t, to_host
@@ -312,18 +314,19 @@ class DeviceConsultService:
         packed = t >= 32768 and t % 8 == 0 and dev.type != "cpu"
         self.jit_shapes.add(batch.shape_signature + (t, k, packed))
 
-        def up(a):
-            return torch.from_numpy(a).to(dev)
-
+        query = [torch.from_numpy(a) for a in (
+            batch.flat_cols, batch.offsets, batch.before, batch.kind)]
+        with span("accord.service.upload"):
+            query = [a.to(dev) for a in query]
         # one launch, both answers read back in one copy (kernel.py)
         deps, max_lanes = to_host(*ragged_consult_t(
             buffers["live_T"], buffers["key_T"], buffers["ts"],
             buffers["txn_id"], buffers["kind"], buffers["status"],
-            buffers["active"], up(batch.flat_cols), up(batch.offsets),
-            up(batch.before), up(batch.kind), packed=packed))
+            buffers["active"], *query, packed=packed))
         if packed:
-            deps = np.unpackbits(deps, axis=1, bitorder="little") \
-                .astype(bool)[:, :t]
+            with span("accord.service.unpack"):
+                deps = np.unpackbits(deps, axis=1, bitorder="little") \
+                    .astype(bool)[:, :t]
         return deps, max_lanes
 
     # -- telemetry ------------------------------------------------------------

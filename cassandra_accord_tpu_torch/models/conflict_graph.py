@@ -37,6 +37,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..observe.profiler import span
 from ..ops import graph_state as gs
 from ..ops import deps_kernels as dk
 
@@ -64,41 +65,46 @@ def _scatter_rows(state: gs.GraphState, slots: torch.Tensor,
 
 
 def _preaccept(state: gs.GraphState, batch: TxnBatch, inplace: bool):
-    deps = dk.overlap_join(state.key_inc, state.txn_id, state.kind,
-                           state.status, state.active,
-                           batch.key_inc, batch.txn_id, batch.kind)
-    deps = deps & batch.valid.to(torch.bool)[:, None]
-    conflict_max, any_dep = dk.max_conflict_ts(state.ts, deps)
-    rows, dst = _scatter_rows(state, batch.slots, batch.valid)
-    put = gs.put_rows
-    state = gs.GraphState(
-        key_inc=put(state.key_inc, dst, batch.key_inc[rows], inplace),
-        ts=put(state.ts, dst, batch.txn_id[rows], inplace),
-        txn_id=put(state.txn_id, dst, batch.txn_id[rows], inplace),
-        kind=put(state.kind, dst, batch.kind[rows], inplace),
-        status=put(state.status, dst, gs.PREACCEPTED, inplace),
-        adj=put(state.adj, dst, deps[rows], inplace),
-        active=put(state.active, dst, True, inplace),
-    )
-    return state, deps, conflict_max, any_dep
+    with span("accord.step.witness"):
+        with span("accord.step.join"):
+            deps = dk.overlap_join(state.key_inc, state.txn_id, state.kind,
+                                   state.status, state.active,
+                                   batch.key_inc, batch.txn_id, batch.kind)
+        deps = deps & batch.valid.to(torch.bool)[:, None]
+        with span("accord.step.lex_max"):
+            conflict_max, any_dep = dk.max_conflict_ts(state.ts, deps)
+        rows, dst = _scatter_rows(state, batch.slots, batch.valid)
+        put = gs.put_rows
+        state = gs.GraphState(
+            key_inc=put(state.key_inc, dst, batch.key_inc[rows], inplace),
+            ts=put(state.ts, dst, batch.txn_id[rows], inplace),
+            txn_id=put(state.txn_id, dst, batch.txn_id[rows], inplace),
+            kind=put(state.kind, dst, batch.kind[rows], inplace),
+            status=put(state.status, dst, gs.PREACCEPTED, inplace),
+            adj=put(state.adj, dst, deps[rows], inplace),
+            active=put(state.active, dst, True, inplace),
+        )
+        return state, deps, conflict_max, any_dep
 
 
 def _stabilise(state: gs.GraphState, slots: torch.Tensor,
                execute_at: torch.Tensor, valid: torch.Tensor,
                inplace: bool) -> gs.GraphState:
-    rows, dst = _scatter_rows(state, slots, valid)
-    return state._replace(
-        ts=gs.put_rows(state.ts, dst, execute_at[rows], inplace),
-        status=gs.put_rows(state.status, dst, gs.STABLE, inplace))
+    with span("accord.step.stabilise"):
+        rows, dst = _scatter_rows(state, slots, valid)
+        return state._replace(
+            ts=gs.put_rows(state.ts, dst, execute_at[rows], inplace),
+            status=gs.put_rows(state.status, dst, gs.STABLE, inplace))
 
 
 def _execute(state: gs.GraphState, inplace: bool):
-    ready = dk.kahn_frontier(state.adj, state.status, state.active)
-    if inplace:
-        status = state.status.masked_fill_(ready, gs.APPLIED)
-    else:
-        status = state.status.masked_fill(ready, gs.APPLIED)
-    return state._replace(status=status), ready
+    with span("accord.step.execute"):
+        ready = dk.kahn_frontier(state.adj, state.status, state.active)
+        if inplace:
+            status = state.status.masked_fill_(ready, gs.APPLIED)
+        else:
+            status = state.status.masked_fill(ready, gs.APPLIED)
+        return state._replace(status=status), ready
 
 
 def preaccept_step(state: gs.GraphState, batch: TxnBatch
@@ -134,9 +140,11 @@ def gc_step(state: gs.GraphState,
     (RedundantBefore.java:49-529): their slots become reusable.
 
     redundant_before: [5] int32 packed lanes."""
-    applied = (state.status == gs.APPLIED) | (state.status == gs.INVALIDATED)
-    below = gs.ts_less(state.txn_id, redundant_before[None, :])
-    return gs.evict_mask(state, ~(applied & below & state.active))
+    with span("accord.gc"):
+        applied = ((state.status == gs.APPLIED)
+                   | (state.status == gs.INVALIDATED))
+        below = gs.ts_less(state.txn_id, redundant_before[None, :])
+        return gs.evict_mask(state, ~(applied & below & state.active))
 
 
 def txn_step(state: gs.GraphState, batch: TxnBatch
@@ -147,14 +155,17 @@ def txn_step(state: gs.GraphState, batch: TxnBatch
     over and writes it in place (module doc).
 
     Returns (state', deps [B, T], applied_mask [T])."""
-    state, deps, conflict_max, any_dep = _preaccept(state, batch, inplace=True)
-    # fast-path: no conflict later than us -> executeAt = txnId
-    fast = ~any_dep | gs.ts_less(conflict_max, batch.txn_id)
-    exec_at = torch.where(fast[:, None], batch.txn_id,
-                          gs.ts_next(conflict_max, 0))
-    state = _stabilise(state, batch.slots, exec_at, batch.valid, inplace=True)
-    state, applied = _execute(state, inplace=True)
-    return state, deps, applied
+    with span("accord.step"):
+        state, deps, conflict_max, any_dep = _preaccept(state, batch,
+                                                        inplace=True)
+        # fast-path: no conflict later than us -> executeAt = txnId
+        fast = ~any_dep | gs.ts_less(conflict_max, batch.txn_id)
+        exec_at = torch.where(fast[:, None], batch.txn_id,
+                              gs.ts_next(conflict_max, 0))
+        state = _stabilise(state, batch.slots, exec_at, batch.valid,
+                           inplace=True)
+        state, applied = _execute(state, inplace=True)
+        return state, deps, applied
 
 
 def txn_step_scan(state: gs.GraphState, batches: TxnBatch

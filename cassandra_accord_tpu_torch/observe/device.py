@@ -1,11 +1,11 @@
-"""Device data-plane metrics: one source for resolver counters and kernel
-roofline accounting.
+"""Device data-plane metrics: the resolver's counters and the consult
+service's stats, collected into the metrics registry.
 
 The device deps resolver's ad-hoc counters (consult tier choices, prefetch
-hit/miss/patch) and the kernel-level roofline numbers (join operations,
-index bytes, share of the card's peak) previously lived in two places — burn-result stats and
-``bench.py`` JSON tails — with the formulas duplicated.  Both now report
-through here.
+hit/miss/patch) report through here, as do the service's queue and batching
+stats.  The kernels' share of their bound is the benchmark's
+(``accord_bench/metrics/*roofline_pct.py``: bytes and operations a call
+needs, over the card's peaks), not a dense product's.
 """
 from __future__ import annotations
 
@@ -13,15 +13,6 @@ from typing import Dict, Optional
 
 from .schema import (RESOLVER_COUNTERS, RESOLVER_METRICS,
                      SERVICE_BATCH_SIZE_METRIC, SERVICE_STAT_METRICS)
-
-# The consult kernels (csrc/consult.cu) run byte ORs and int32 compares on
-# the CUDA cores; they use no tensor cores.  The denominator is therefore
-# the H100 SXM's non-tensor rate: 67 TFLOP/s FP32 on CUDA cores (NVIDIA H100
-# Tensor Core GPU data sheet, SXM column, at the 700 W power limit).  The
-# "join operations" below count 2·B·K·T, the work of the equivalent dense
-# product, so the share says how far the sparse kernel is past doing that
-# product at the card's CUDA-core rate, not how busy the card was.
-PEAK_CUDA_CORE_TFLOPS = 67.0
 
 
 def resolver_counters(resolver) -> Optional[Dict[str, int]]:
@@ -109,35 +100,3 @@ def collect_into(registry, cluster) -> None:
             if delta > 0:
                 hist.record_many(rows, delta)
             reported[rows] = count
-
-
-# -- kernel roofline accounting (bench.py) -----------------------------------
-
-def consult_join_flops(b: int, k: int, t: int) -> float:
-    """Matmul FLOPs of one fused consult launch: a [B,K]x[K,T] join."""
-    return 2.0 * b * k * t
-
-
-def index_bytes_int8(t: int, k: int) -> int:
-    """Resident bytes of the int8 incidence index (key_inc + live mirror)."""
-    return 2 * t * k
-
-
-def kernel_consult_metrics(t: int, k: int, b: int,
-                           device_qps: float) -> Dict[str, float]:
-    """Roofline block for one consult-kernel measurement: achieved join
-    TFLOP/s and its share of the card's CUDA-core peak."""
-    tflops = device_qps / b * consult_join_flops(b, k, t) / 1e12
-    return {"index_bytes_int8": index_bytes_int8(t, k),
-            "device_join_tflops": round(tflops, 4),
-            "consult_peak_share": round(tflops / PEAK_CUDA_CORE_TFLOPS, 5)}
-
-
-def launch_mfu(t: int, k: int, rows: int, seconds: float) -> Dict[str, float]:
-    """Share of peak of one measured consult launch (the wall profiler's
-    per-launch plane): achieved join TFLOP/s of a [rows,K]x[K,T] join over
-    its measured wall seconds, against the CUDA-core peak — same
-    denominator as ``kernel_consult_metrics``, one formula source."""
-    tflops = consult_join_flops(max(rows, 1), k, t) / max(seconds, 1e-9) / 1e12
-    return {"launch_join_tflops": round(tflops, 5),
-            "launch_peak_share": round(tflops / PEAK_CUDA_CORE_TFLOPS, 7)}

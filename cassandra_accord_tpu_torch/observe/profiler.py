@@ -24,20 +24,39 @@ Three measurement planes:
 3. **Device-service launch breakdown** (``device_service/service.py`` +
    ``impl/tpu_resolver.py``): per-launch dispatch RTT, host↔device
    transfer bytes, new-shape events (observed as new shape signatures),
-   and per-launch wall-ms feeding the share-of-peak formulas in
-   ``observe/device.py``.
+   and per-launch wall-ms.
 
 Handler slices are kept (bounded) with wall timestamps so the Perfetto
 export can render wall-clock tracks and flow-link a txn's sim spans to the
 host handler slices that served it (``observe/export.py``).
+
+``span(name)`` names a stretch of the port's own work (``accord.*``: a
+``txn_step`` and its phases, each host sync, the index refresh, a window's
+dispatch and its parts) on the device trace's clock: while a
+``torch.profiler`` session records, it is a ``record_function`` range, a
+``user_annotation`` event on the same timeline as the kernels and copies;
+otherwise it is one shared no-op context, so the untraced path pays a
+guarded check and no profiler call.
 """
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List
+
+import torch
 
 from .critical_path import _percentile
-from .device import launch_mfu
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function(name)`` range while a profiler records, else the
+    shared no-op context."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 # handler slices kept for the Perfetto wall tracks (ring-bounded: a hostile
 # seed emits hundreds of thousands of handler invocations)
@@ -88,7 +107,6 @@ class WallProfiler:
         self.launch_ms: List[float] = []        # per-launch kernel wall ms
         self._launch_cap = 8192
         self.consult_wall_s = 0.0               # resolver _consult total
-        self._launch_shape = None               # (t, k) of the last launch
 
     # -- handler timing (Node._process_or_fail) ------------------------------
     def now(self) -> float:
@@ -121,8 +139,7 @@ class WallProfiler:
 
     # -- device-service launches (DeviceConsultService._dispatch) ------------
     def on_device_launch(self, rows: int, seconds: float, h2d_bytes: int,
-                         d2h_bytes: int, compiled: bool,
-                         shape: Optional[tuple] = None) -> None:
+                         d2h_bytes: int, compiled: bool) -> None:
         self.launches += 1
         self.launch_wall_s += seconds
         self.launch_max_s = max(self.launch_max_s, seconds)
@@ -133,8 +150,6 @@ class WallProfiler:
             self.compile_events += 1
         if len(self.launch_ms) < self._launch_cap:
             self.launch_ms.append(seconds * 1e3)
-        if shape is not None:
-            self._launch_shape = shape
 
     # -- reporting ------------------------------------------------------------
     # exact nearest-rank percentile, shared with the plane-1 budget so both
@@ -191,14 +206,6 @@ class WallProfiler:
             "compile_events": self.compile_events,
             "consult_wall_s": round(self.consult_wall_s, 4),
         }
-        if self.launches and self._launch_shape is not None:
-            # share of peak over the measured launches: the mean launch's
-            # achieved join FLOP/s against the card's CUDA-core peak
-            # (observe/device.launch_mfu)
-            t, k = self._launch_shape
-            device.update(launch_mfu(
-                t, k, int(self.launch_rows / self.launches) or 1,
-                self.launch_wall_s / self.launches))
         return {
             "time_plane": "wall_s",
             "wall_s": round(wall_s, 3),
@@ -245,8 +252,7 @@ def format_wall_profile(report: dict, label: str = "") -> str:
             f"{dev['dispatch_mean_ms']:.2f}ms mean RTT "
             f"(max {dev['dispatch_max_ms']:.2f}), "
             f"{dev['compile_events']} compiles, "
-            f"h2d {dev['h2d_bytes']} B, d2h {dev['d2h_bytes']} B, "
-            f"peak share {dev.get('launch_peak_share', 0)}")
+            f"h2d {dev['h2d_bytes']} B, d2h {dev['d2h_bytes']} B")
     elif dev["consult_wall_s"]:
         lines.append(f"  consult wall (host tiers): "
                      f"{dev['consult_wall_s']:.3f}s, no device launches")

@@ -48,6 +48,7 @@ from . import _kernels
 from ._kernels import lex_max_masked as _lex_max_masked
 from ._kernels import witness_table as _witness_table
 from .graph_state import APPLIED, INVALIDATED, STABLE
+from ..observe.profiler import span
 
 WITNESSES = torch.as_tensor(_witness_table())
 
@@ -101,8 +102,11 @@ def query_csr(batch_key_inc: torch.Tensor
     offsets [B+1] and cols [N] int32, and their int8 values [N]."""
     b = batch_key_inc.shape[0]
     q = _s8(batch_key_inc)
-    nz = torch.nonzero(q)                                           # [N, 2]
-    counts = torch.bincount(nz[:, 0], minlength=b)
+    with span("accord.sync.query_csr"):
+        nz = torch.nonzero(q)                                       # [N, 2]
+    # two host syncs on the card: torch reads the rows' min and max back
+    with span("accord.sync.bincount"):
+        counts = torch.bincount(nz[:, 0], minlength=b)
     offsets = torch.zeros((b + 1,), dtype=torch.int32,
                           device=batch_key_inc.device)
     offsets[1:] = torch.cumsum(counts, 0)
@@ -332,7 +336,8 @@ def kahn_frontier(adj: torch.Tensor, status: torch.Tensor,
     masks the others out after: the same answer)."""
     dep_done = (status == APPLIED) | (status == INVALIDATED) | ~active
     ready = active & (status == STABLE)
-    rows = torch.nonzero(ready).squeeze(1)
+    with span("accord.sync.frontier"):
+        rows = torch.nonzero(ready).squeeze(1)
     ready[rows] = ~_bool_matvec(adj, ~dep_done, rows)
     return ready
 

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..observe.profiler import span
 
 # InternalStatus codes mirrored from ..local.cfk.InternalStatus (kept as plain
 # ints here so device code never imports the host control plane).
@@ -167,7 +168,8 @@ def last_rows(slots: torch.Tensor, t: int,
     win = inside & (last[s] == order)
     if keep is not None:
         win &= keep
-    return torch.nonzero(win).squeeze(1)
+    with span("accord.sync.last_rows"):
+        return torch.nonzero(win).squeeze(1)
 
 
 def put_rows(x: torch.Tensor, index: torch.Tensor, values,
@@ -175,8 +177,12 @@ def put_rows(x: torch.Tensor, index: torch.Tensor, values,
     """``x`` with x[index] = values (``index`` without duplicates): a copy,
     or ``x`` itself written in place when ``inplace``."""
     out = x if inplace else x.clone()
-    out[index] = values.to(x.dtype) if isinstance(values, torch.Tensor) \
-        else values
+    if isinstance(values, torch.Tensor):
+        out[index] = values.to(x.dtype)
+    else:
+        # a host sync on the card: the scalar goes up in a blocking copy
+        with span("accord.sync.put_scalar"):
+            out[index] = values
     return out
 
 
@@ -241,8 +247,10 @@ def evict_mask(state: GraphState, keep: torch.Tensor) -> GraphState:
     keep = keep.to(torch.bool)
     keep_i8 = keep.to(torch.int8)
     keep_i32 = keep[:, None].to(torch.int32)
-    adj = _mask_cols(state.adj, keep_i8).index_fill_(
-        0, torch.nonzero(~keep).squeeze(1), 0)
+    adj = _mask_cols(state.adj, keep_i8)
+    with span("accord.sync.evict"):
+        evicted = torch.nonzero(~keep).squeeze(1)
+    adj.index_fill_(0, evicted, 0)
     return GraphState(
         key_inc=state.key_inc * keep_i8[:, None],
         ts=state.ts * keep_i32,

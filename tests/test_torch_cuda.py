@@ -902,3 +902,163 @@ def test_service_window_is_one_fused_launch(cuda, packed):
         want = _kernels.fused_consult_plain(*args, packed=packed)
         assert np.array_equal(deps, want[0].cpu().numpy())
         assert np.array_equal(lanes, want[1].cpu().numpy())
+
+
+def _profiled(run, tmp_path):
+    """``run()`` under a CPU and CUDA profile: the ``accord.*`` ranges of
+    its Chrome trace, and its host sync points: the innermost host op of
+    each synchronising runtime call (a synchronise, or a copy to pageable
+    host memory; ``.item()`` makes a copy and a synchronise)."""
+    import json
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    device = {(e.get("args") or {}).get("correlation"): e["name"]
+              for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")}
+    spans, ops, points = {}, [], set()
+    for e in events:
+        a, b = float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))
+        if e.get("cat") == "user_annotation" \
+                and e["name"].startswith("accord."):
+            spans.setdefault(e["name"], []).append((a, b))
+        elif e.get("cat") == "cpu_op":
+            ops.append((a, b))
+    for e in events:
+        dev = device.get((e.get("args") or {}).get("correlation"), "")
+        if e.get("cat") == "cuda_runtime" and (
+                e["name"] in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                              "cudaEventSynchronize")
+                or (e["name"].startswith("cudaMemcpy") and "DtoH" in dev
+                    and "Pageable" in dev)):
+            at = float(e["ts"])
+            holding = [(a, b) for a, b in ops if a <= at <= b]
+            points.add(min(holding, key=lambda r: r[1] - r[0])
+                       if holding else (at, at))
+    return spans, sorted(points)
+
+
+def _in(spans, names, t):
+    return any(a <= t <= b for n in names for a, b in spans.get(n, ()))
+
+
+
+def test_service_window_spans_on_card(cuda, tmp_path):
+    """A window at T = 32,768 (bit-packed answers) under the profiler: one
+    dispatch holding the uploads, the launch, the read-back and the unpack;
+    one refresh holding its row scatter; answers equal to the window run
+    untraced."""
+    from cassandra_accord_tpu_torch.config import LocalConfig
+    from cassandra_accord_tpu_torch.device_service.service import \
+        DeviceConsultService
+    t, k = 32768, 64
+    rng = np.random.default_rng(5)
+    inc = (rng.random((t, k)) < 0.05).astype(np.int8)
+    lanes = rng.integers(0, 50, (t, 5)).astype(np.int32)
+    host = {"key_inc": inc, "live_inc": inc, "ts": lanes, "txn_id": lanes,
+            "kind": rng.integers(0, 5, t).astype(np.int8),
+            "status": rng.integers(1, 7, t).astype(np.int8),
+            "active": rng.random(t) < 0.9}
+
+    class Store:
+        def __init__(self):
+            self.h = {n: a.copy() for n, a in host.items()}
+            self.dirty = set()
+            self._max_slot, self._max_key_slot = t - 1, k - 1
+            self.device_consults = 0
+            self.config = LocalConfig.from_env(
+                tpu_service="on", tpu_service_backend="torch", device="cuda")
+
+        def host_index(self):
+            return self.h
+
+        def take_dirty_rows(self):
+            d, self.dirty = self.dirty, set()
+            return d
+
+    consults = [(tuple(rng.choice(k, 2, replace=False).tolist()),
+                 (0, 0, 40, 0, 0), 1) for _ in range(24)]
+
+    def window(svc, store):
+        store.h["status"][:9] = 2
+        store.dirty.update(range(9))
+        svc.begin_window()
+        futs = [svc.submit(*c) for c in consults]
+        out = [f.result() for f in futs]
+        svc.end_window()
+        return out
+
+    answers = []
+    for traced in (False, True):
+        store = Store()
+        svc = DeviceConsultService(store, config=store.config)
+        window(svc, store)
+        if traced:
+            spans, _ = _profiled(
+                lambda: answers.append(window(svc, store)), tmp_path)
+        else:
+            answers.append(window(svc, store))
+    assert len(answers[0]) == len(answers[1]) == len(consults)
+    for (deps0, max0), (deps1, max1) in zip(*answers):
+        assert np.array_equal(deps0, deps1) and np.array_equal(max0, max1)
+    count = {n: len(v) for n, v in spans.items()}
+    assert count == {"accord.index.refresh": 1, "accord.index.apply_rows": 1,
+                     "accord.service.build_batch": 1,
+                     "accord.service.dispatch": 1,
+                     "accord.service.upload": 1, "accord.kernel.consult": 1,
+                     "accord.kernel.to_host": 1, "accord.service.unpack": 1}
+    (d0, d1), = spans["accord.service.dispatch"]
+    for part in ("accord.service.upload", "accord.kernel.consult",
+                 "accord.kernel.to_host", "accord.service.unpack"):
+        (a, b), = spans[part]
+        assert d0 <= a and b <= d1, part
+
+
+@pytest.mark.parametrize("k", [32, 40])
+def test_step_syncs_are_the_sync_spans_on_card(cuda, k, tmp_path):
+    """Every host sync point of a ``txn_step`` and ``gc_step`` on the card
+    lies in an ``accord.sync.*`` span, and each such span holds one."""
+    t, b = 1024, 16
+    rng = np.random.default_rng(k)
+    state = gs.init_state(t, k, device=cuda)
+    state.key_inc[:] = torch.from_numpy(
+        (rng.random((t, k)) < 0.2).astype(np.int8)).to(cuda)
+    lanes = torch.from_numpy(rng.integers(1, 500, (t, 5)).astype(np.int32))
+    state.txn_id[:] = lanes.to(cuda)
+    state.ts[:] = lanes.to(cuda)
+    state.status[:] = torch.from_numpy(
+        rng.integers(1, 7, t).astype(np.int8)).to(cuda)
+    state.active[:] = True
+    batch = cg.TxnBatch(
+        slots=torch.from_numpy(rng.choice(t, b, replace=False)
+                               .astype(np.int32)).to(cuda),
+        key_inc=torch.from_numpy((rng.random((b, k)) < 0.15)
+                                 .astype(np.int8)).to(cuda),
+        txn_id=torch.from_numpy(rng.integers(500, 900, (b, 5))
+                                .astype(np.int32)).to(cuda),
+        kind=torch.from_numpy(rng.integers(0, 5, b).astype(np.int8)).to(cuda),
+        valid=torch.ones(b, dtype=torch.bool, device=cuda))
+    watermark = torch.tensor([1000, 0, 0, 0, 0], dtype=torch.int32,
+                             device=cuda)
+
+    def step():
+        s, _deps, _applied = cg.txn_step(state, batch)
+        cg.gc_step(s, watermark)
+    step()
+    spans, points = _profiled(step, tmp_path)
+    syncs = [n for n in spans if n.startswith("accord.sync.")]
+    assert {"accord.sync.last_rows", "accord.sync.put_scalar",
+            "accord.sync.frontier", "accord.sync.evict"} <= set(syncs)
+    assert ("accord.sync.query_csr" in syncs) == (k == 40)
+    inside = [a for a, _ in points
+              if _in(spans, ("accord.step", "accord.gc"), a)]
+    assert all(_in(spans, syncs, a) for a in inside)
+    for name in syncs:
+        for a, b in spans[name]:
+            assert any(a <= at <= b for at in inside), name

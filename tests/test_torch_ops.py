@@ -374,13 +374,3 @@ def test_out_of_range_codes_and_columns_equal_reference():
     _assert_equal(_port(overlap_join_fused, *jargs),
                   np.asarray(ref_overlap_join_fused(
                       *(jnp.asarray(a) for a in jargs), interpret=True)))
-
-
-def test_observe_peak_share_keys():
-    """The port names its share of peak without a TPU figure."""
-    from cassandra_accord_tpu_torch.observe import device as od
-    m = od.kernel_consult_metrics(65536, 512, 64, 1000.0)
-    assert set(m) == {"index_bytes_int8", "device_join_tflops",
-                      "consult_peak_share"}
-    assert "launch_peak_share" in od.launch_mfu(4096, 64, 8, 1e-3)
-    assert od.PEAK_CUDA_CORE_TFLOPS == 67.0
