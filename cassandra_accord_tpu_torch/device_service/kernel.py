@@ -21,7 +21,8 @@ halves; on the dense form K1d and K2d write into one buffer of the same
 layout (``_kernels.consult_out``).  ``to_host`` brings that buffer back.
 For CPU buffers the wrappers run their plain torch versions (which
 densify the query with an int32 scatter-add).  With ``packed`` the deps
-mask comes back bit-packed ``[B, T/8]`` uint8, little-endian.
+mask comes back bit-packed ``[B, T/8]`` uint8, little-endian, and
+``unpack_deps`` turns the rows read back into bool rows.
 """
 from __future__ import annotations
 
@@ -63,7 +64,8 @@ def to_host(deps: torch.Tensor, max_lanes: torch.Tensor
             ) -> Tuple[np.ndarray, np.ndarray]:
     """``ragged_consult_t``'s answer as numpy arrays: the buffer both views
     lie in (``_kernels.consult_out``: the lanes at its start, the deps at
-    its end) comes back in one copy and one sync (none for CPU buffers)."""
+    its end) comes back in one copy and one sync (none for CPU buffers).
+    Given the first rows of both views, the copy ends with those rows."""
     with span("accord.kernel.to_host"):
         start = deps.storage_offset() * deps.element_size()
         size = start + deps.numel() * deps.element_size()
@@ -81,3 +83,12 @@ def to_host(deps: torch.Tensor, max_lanes: torch.Tensor
             out = out.view(np.bool_)
         return (out.reshape(tuple(deps.shape)),
                 lanes.reshape(tuple(max_lanes.shape)))
+
+
+def unpack_deps(packed_rows: np.ndarray, t: int) -> np.ndarray:
+    """Bit-packed deps rows (``[rows, T/8]`` uint8, little-endian) as
+    ``[rows, t]`` bool in one fresh array: ``np.unpackbits`` writes bytes
+    that are 0 or 1, which are bool as they stand, so they are viewed as
+    bool and not converted."""
+    return np.unpackbits(packed_rows, axis=1, count=t,
+                         bitorder="little").view(np.bool_)

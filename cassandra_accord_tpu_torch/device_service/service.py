@@ -117,6 +117,7 @@ class DeviceConsultService:
         self.dispatch_count = 0
         self.dispatch_max_seconds = 0.0
         self.occupancy_sum = 0          # real rows per dispatch vs max_window
+        self.pad_rows_skipped = 0       # padding rows launched, never read back
         self.jit_shapes: set = set()    # (rows_bucket, flat_bucket, t, k, packed)
         # bounded (ts, queue_depth, batch_rows) samples for the Chrome-trace
         # counter track; ts is sim-micros when the store has a clock, else a
@@ -303,10 +304,10 @@ class DeviceConsultService:
                 self._profiler.on_device_launch(
                     batch.rows, dt, h2d, deps.nbytes + max_lanes.nbytes,
                     compiled)
-            return deps[:batch.rows], max_lanes[:batch.rows]
+            return deps, max_lanes
 
     def _dispatch_torch(self, batch: ConsultBatch, buffers):
-        from .kernel import ragged_consult_t, to_host
+        from .kernel import ragged_consult_t, to_host, unpack_deps
         k, t = buffers["live_T"].shape
         dev = buffers["live_T"].device
         # bit-packing the result only pays when it crosses a real transfer
@@ -318,15 +319,17 @@ class DeviceConsultService:
             batch.flat_cols, batch.offsets, batch.before, batch.kind)]
         with span("accord.service.upload"):
             query = [a.to(dev) for a in query]
-        # one launch, both answers read back in one copy (kernel.py)
-        deps, max_lanes = to_host(*ragged_consult_t(
+        # one launch; the real rows of both answers, prefixes of the one
+        # buffer, read back in one copy (kernel.py)
+        deps, max_lanes = ragged_consult_t(
             buffers["live_T"], buffers["key_T"], buffers["ts"],
             buffers["txn_id"], buffers["kind"], buffers["status"],
-            buffers["active"], *query, packed=packed))
+            buffers["active"], *query, packed=packed)
+        self.pad_rows_skipped += deps.shape[0] - batch.rows
+        deps, max_lanes = to_host(deps[:batch.rows], max_lanes[:batch.rows])
         if packed:
             with span("accord.service.unpack"):
-                deps = np.unpackbits(deps, axis=1, bitorder="little") \
-                    .astype(bool)[:, :t]
+                deps = unpack_deps(deps, t)
         return deps, max_lanes
 
     # -- telemetry ------------------------------------------------------------
@@ -356,6 +359,7 @@ class DeviceConsultService:
             "mean_batch_rows": round(self.occupancy_sum
                                      / max(1, self.dispatch_count), 2),
             "window_occupancy": round(occ, 4),
+            "pad_rows_skipped": self.pad_rows_skipped,
             "dispatch_mean_s": round(lat, 6),
             "dispatch_max_s": round(self.dispatch_max_seconds, 6),
             "jit_shapes": len(self.jit_shapes | self.index.jit_shapes),

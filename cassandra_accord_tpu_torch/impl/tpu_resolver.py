@@ -1122,7 +1122,8 @@ class TpuDepsResolver(DepsResolver):
         query goes over as CSR; the batch dim pads to a power of two, as in
         the reference, so shapes stay bucketed."""
         import torch
-        from ..device_service.kernel import ragged_consult_t, to_host
+        from ..device_service.kernel import (ragged_consult_t, to_host,
+                                             unpack_deps)
         self.device_consults += q.shape[0]
         self._sync_device()
         b = q.shape[0]
@@ -1143,14 +1144,14 @@ class TpuDepsResolver(DepsResolver):
         # transfer-bound regime: bit-pack the deps mask on device (8×
         # smaller result) and unpack host-side
         packed = self._t >= 32768 and self._t % 8 == 0
-        deps, max_lanes = to_host(*ragged_consult_t(
+        deps, max_lanes = ragged_consult_t(
             s["live_T"], s["key_T"], s["ts"], s["txn_id"], s["kind"],
             s["status"], s["active"], up(cols.astype(np.int32)), up(offsets),
-            up(before_p), up(kind_p), packed=packed))
+            up(before_p), up(kind_p), packed=packed)
+        deps, max_lanes = to_host(deps[:b], max_lanes[:b])
         if packed:
-            deps = np.unpackbits(deps, axis=1, bitorder="little") \
-                .astype(bool)[:, :self._t]
-        return deps[:b], max_lanes[:b]
+            deps = unpack_deps(deps, self._t)
+        return deps, max_lanes
 
     def _sync_device(self) -> None:
         """Upload the canonical host index to the device if stale (lazy: only

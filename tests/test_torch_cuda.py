@@ -1020,6 +1020,81 @@ def test_service_window_spans_on_card(cuda, tmp_path):
         assert d0 <= a and b <= d1, part
 
 
+def test_service_windows_read_back_only_real_rows_on_card(cuda):
+    """Windows of 1, 31, 33 and 64 consults at T = 32,768, so bit-packed:
+    each answer equals ``fused_consult_plain`` over the window's pinned
+    buffers, every padding row launched is counted in ``pad_rows_skipped``,
+    and a later window leaves the answers of earlier ones as they were."""
+    from cassandra_accord_tpu_torch.config import LocalConfig
+    from cassandra_accord_tpu_torch.device_service.batch import (
+        ROW_BUCKET_FLOOR, build_batch, pow2_bucket)
+    from cassandra_accord_tpu_torch.device_service.service import \
+        DeviceConsultService
+    t, k = 32768, 64
+    rng = np.random.default_rng(17)
+    live = (rng.random((t, k)) < 0.05).astype(np.int8)
+    lanes = rng.integers(0, 50, (t, 5)).astype(np.int32)
+    host = {"key_inc": live | (rng.random((t, k)) < 0.03).astype(np.int8),
+            "live_inc": live, "ts": lanes + rng.integers(0, 3, (t, 5))
+            .astype(np.int32), "txn_id": lanes,
+            "kind": rng.integers(0, 5, t).astype(np.int8),
+            "status": rng.integers(1, 7, t).astype(np.int8),
+            "active": rng.random(t) < 0.9}
+
+    class Store:
+        def __init__(self):
+            self.h = {n: a.copy() for n, a in host.items()}
+            self.dirty = set()
+            self._max_slot, self._max_key_slot = t - 1, k - 1
+            self.device_consults = 0
+            self.config = LocalConfig.from_env(
+                tpu_service="on", tpu_service_backend="torch", device="cuda")
+
+        def host_index(self):
+            return self.h
+
+        def take_dirty_rows(self):
+            d, self.dirty = self.dirty, set()
+            return d
+
+    store = Store()
+    svc = DeviceConsultService(store, config=store.config)
+    skipped, held = 0, []
+    for n in (1, 31, 33, 64):
+        consults = [(tuple(rng.choice(k, int(rng.integers(0, 4)),
+                                      replace=False).tolist()),
+                     tuple(rng.integers(0, 50, 5).tolist()),
+                     int(rng.integers(0, 6))) for _ in range(n)]
+        svc.begin_window()
+        buffers = svc._window.buffers
+        futs = [svc.submit(*c) for c in consults]
+        got = [f.result() for f in futs]
+        svc.end_window()
+        batch = build_batch(*zip(*consults), row_cap=svc.max_window)
+        cols, offsets, before, qkind = (
+            torch.from_numpy(a).to(cuda) for a in (
+                batch.flat_cols, batch.offsets, batch.before, batch.kind))
+        want_deps, want_lanes = _kernels.fused_consult_plain(
+            buffers["live_T"], buffers["key_T"], buffers["ts"],
+            buffers["txn_id"], buffers["kind"], buffers["status"],
+            buffers["active"], offsets, cols, before, qkind)
+        deps = np.stack([d for d, _ in got])
+        assert deps.dtype == np.bool_ and deps.shape == (n, t)
+        assert np.array_equal(deps, want_deps[:n].cpu().numpy())
+        assert np.array_equal(np.stack([m for _, m in got]),
+                              want_lanes[:n].cpu().numpy())
+        skipped += pow2_bucket(n, ROW_BUCKET_FLOOR, svc.max_window) - n
+        assert svc.stats()["pad_rows_skipped"] == skipped
+        held.append((got, [(d.copy(), m.copy()) for d, m in got]))
+        for earlier, copies in held:
+            for (d, m), (d0, m0) in zip(earlier, copies):
+                assert np.array_equal(d, d0) and np.array_equal(m, m0)
+        store.h["status"][:64] = rng.integers(1, 7, 64).astype(np.int8)
+        store.dirty.update(range(64))
+    assert skipped == 7 + 1 + 31 + 0
+    assert all(shape[-1] for shape in svc.jit_shapes), "not bit-packed"
+
+
 @pytest.mark.parametrize("k", [32, 40])
 def test_step_syncs_are_the_sync_spans_on_card(cuda, k, tmp_path):
     """Every host sync point of a ``txn_step`` and ``gc_step`` on the card

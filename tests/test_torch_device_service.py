@@ -17,6 +17,7 @@ from cassandra_accord_tpu_torch.device_service.batch import (build_batch,
                                                              pow2_bucket,
                                                              split_rows)
 from cassandra_accord_tpu_torch.device_service.index import front_from_host
+from cassandra_accord_tpu_torch.device_service.kernel import unpack_deps
 from cassandra_accord_tpu_torch.device_service.service import \
     DeviceConsultService
 from cassandra_accord_tpu_torch.impl.resolver import (CpuDepsResolver,
@@ -348,6 +349,63 @@ def test_undemanded_window_costs_zero_launches():
     assert svc.batches == batches
     assert resolver.device_consults == consults
     assert svc.dropped_windows == 1
+
+
+# ---------------------------------------------------------------------------
+# a window's read-back: only the real rows, unpacked without a conversion
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("t", [32768, 65536])
+@pytest.mark.parametrize("bucket,rows", [
+    (bucket, rows) for bucket in (8, 32, 64)
+    for rows in (1, 7, 8, 31, 32, 33, 63, 64) if rows <= bucket])
+def test_unpack_deps_equals_unpack_then_convert(t, bucket, rows):
+    """``unpack_deps`` on a bucket's real rows gives what unpacking every
+    row and converting to bool, then cutting, gave: same values, bool,
+    ``(rows, t)``, C-contiguous, and a fresh array each call."""
+    rng = np.random.default_rng(t + 100 * bucket + rows)
+    packed = rng.integers(0, 256, (bucket, t // 8), dtype=np.uint8)
+    want = np.unpackbits(packed, axis=1, bitorder="little") \
+        .astype(bool)[:rows, :t]
+    got = unpack_deps(packed[:rows], t)
+    again = unpack_deps(packed[:rows], t)
+    assert got.dtype == np.bool_ and got.shape == (rows, t)
+    assert got.flags.c_contiguous
+    assert np.array_equal(got, want) and np.array_equal(again, want)
+    assert not np.shares_memory(got, again)
+    assert not np.shares_memory(got, packed)
+
+
+def test_window_counts_padding_rows_not_read_back():
+    """Each dispatch counts its padding rows (bucket less real rows) in
+    ``pad_rows_skipped``, answers only its real rows, and a later window
+    leaves an earlier window's answers as they were."""
+    store, resolver, oracle = make_service_resolver()
+    keys = [rk(i * 10) for i in range(6)]
+    for i in range(20):
+        register_both(store, resolver, tid(10 + i),
+                      InternalStatus.PREACCEPTED, None, [keys[i % 6]])
+    svc = resolver.service()
+    skipped, held = 0, []
+    for n in (1, 9, 31, 33):
+        svc.begin_window()
+        qs = [(keys[i % 6], tid(1000 + i)) for i in range(n)]
+        futs = [svc.submit([resolver.key_slot[key]],
+                           q.as_timestamp().pack_lanes(), int(q.kind),
+                           post=resolver._post_kc([key])) for key, q in qs]
+        got = [f.result() for f in futs]
+        svc.end_window()
+        skipped += pow2_bucket(n, 8, svc.max_window) - n
+        assert svc.stats()["pad_rows_skipped"] == skipped
+        for (key, q), answer in zip(qs, got):
+            want = {t for _k, t in oracle.key_conflicts(
+                q, [key], q.as_timestamp())}
+            assert want and {t for _k, t in answer} == want
+        held.append((got, [list(a) for a in got]))
+        register_both(store, resolver, tid(500 + n),
+                      InternalStatus.PREACCEPTED, None, [keys[n % 6]])
+        for answers, copies in held:
+            assert [list(a) for a in answers] == copies
 
 
 # ---------------------------------------------------------------------------

@@ -245,6 +245,20 @@ def test_to_host_equals_two_reads(packed, b):
         assert np.array_equal(a, w)
 
 
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("rows", [0, 1, 5, 8])
+def test_to_host_of_first_rows_equals_those_rows(packed, rows):
+    """The first rows of both views (a window's real rows) come back as
+    those rows of each answer, and no more."""
+    args = _kernel_args(np.random.default_rng(20 + rows), 256, 16, 8)
+    deps, lanes = _kernels.fused_consult(*args, packed=packed)
+    got_deps, got_lanes = to_host(deps[:rows], lanes[:rows])
+    for a, w in ((got_deps, deps[:rows].cpu().numpy()),
+                 (got_lanes, lanes[:rows].cpu().numpy())):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert np.array_equal(a, w)
+
+
 def test_to_host_takes_only_one_buffer():
     args = _kernel_args(np.random.default_rng(9), 64, 8, 3)
     deps, lanes = _halves(args, False)

@@ -23,6 +23,9 @@ the answers), keeps the profile's Chrome trace and reads the port's
   of them lie outside every ``accord.sync.*`` span; the share of the
   device's idle time inside ``bench.step``, ``bench.demand`` and
   ``bench.refresh`` that falls inside an ``accord.*`` span;
+- ``rows``, in a cell that runs the consult service: per dispatch in the
+  window, the real rows, the padding rows of their buckets, and the
+  service's own ``pad_rows_skipped`` where the checkout has it;
 - ``idle_gaps``: the device's idle time summed by the innermost span open
   on the host as each gap began (``bench.*`` or ``accord.*``) and the
   outermost host op there, as ``accord_bench/trace.py``'s breakdown names
@@ -260,6 +263,32 @@ def split(events, counters):
     return out
 
 
+def _service_rows(svc):
+    """(rows histogram, ``pad_rows_skipped`` or None) of a consult service
+    now, or None without one."""
+    if svc is None:
+        return None
+    return (dict(svc.batch_size_hist),
+            getattr(svc, "pad_rows_skipped", None))
+
+
+def _rows(svc, before, after):
+    """Real and padding rows per dispatch between two ``_service_rows``."""
+    from cassandra_accord_tpu_torch.device_service.batch import (
+        ROW_BUCKET_FLOOR, pow2_bucket)
+    hist = {r: n - before[0].get(r, 0) for r, n in after[0].items()}
+    dispatches = sum(hist.values())
+    if not dispatches:
+        return None
+    out = {"dispatches": dispatches,
+           "real_rows": sum(r * n for r, n in hist.items()) / dispatches,
+           "pad_rows": sum((pow2_bucket(r, ROW_BUCKET_FLOOR, svc.max_window)
+                            - r) * n for r, n in hist.items()) / dispatches}
+    if after[1] is not None:
+        out["pad_rows_skipped"] = (after[1] - before[1]) / dispatches
+    return out
+
+
 def _card():
     try:
         return subprocess.run(
@@ -293,11 +322,14 @@ def main(argv=None):
         driver.setup(args.seconds)
         gc.collect()
         gc.freeze()
+        svc = getattr(driver, "svc", None)
+        rows0 = _service_rows(svc)
         try:
             with tracer.window():
                 driver.run(args.seconds)
         finally:
             gc.unfreeze()
+        rows1 = _service_rows(svc)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
     fd, path = tempfile.mkstemp(suffix=".json")
@@ -310,6 +342,8 @@ def main(argv=None):
         os.unlink(path)
     t = time.perf_counter()
     res = split(events, driver.counters())
+    if rows0 is not None:
+        res["rows"] = _rows(svc, rows0, rows1)
     res.update(workload=args.workload, seed=args.seed,
                device=dict(device, card=_card() if dev.type == "cuda"
                            else None),
