@@ -162,10 +162,13 @@ def _join(index_key_inc, index_txn_id, index_kind, index_status, index_active,
           batch_key_inc, batch_before, batch_kind, packed=False, form="auto"):
     inc, query = _s8(index_key_inc), _s8(batch_key_inc)
     if _tk_dense(form, inc, query):
-        return _kernels.deps_join_tk(
-            inc, _i32(index_txn_id), _i8(index_kind), _i8(index_status),
-            _bool(index_active), query, _i32(batch_before), _i8(batch_kind),
-            packed=packed)
+        # the [T, K] route's one launch; the CSR route's syncs have spans
+        # of their own in ``query_csr``
+        with span("accord.kernel.join_tk"):
+            return _kernels.deps_join_tk(
+                inc, _i32(index_txn_id), _i8(index_kind), _i8(index_status),
+                _bool(index_active), query, _i32(batch_before),
+                _i8(batch_kind), packed=packed)
     offsets, cols, vals = query_csr(query)
     return _kernels.deps_join(
         incidence_T(inc), _i32(index_txn_id), _i8(index_kind),

@@ -1098,7 +1098,8 @@ def test_service_windows_read_back_only_real_rows_on_card(cuda):
 @pytest.mark.parametrize("k", [32, 40])
 def test_step_syncs_are_the_sync_spans_on_card(cuda, k, tmp_path):
     """Every host sync point of a ``txn_step`` and ``gc_step`` on the card
-    lies in an ``accord.sync.*`` span, and each such span holds one."""
+    lies in an ``accord.sync.*`` span, and each such span holds one; the
+    [T, K] route (K = 32) opens ``accord.kernel.join_tk`` and no CSR span."""
     t, b = 1024, 16
     rng = np.random.default_rng(k)
     state = gs.init_state(t, k, device=cuda)
@@ -1131,6 +1132,7 @@ def test_step_syncs_are_the_sync_spans_on_card(cuda, k, tmp_path):
     assert {"accord.sync.last_rows", "accord.sync.put_scalar",
             "accord.sync.frontier", "accord.sync.evict"} <= set(syncs)
     assert ("accord.sync.query_csr" in syncs) == (k == 40)
+    assert ("accord.kernel.join_tk" in spans) == (k == 32)
     inside = [a for a, _ in points
               if _in(spans, ("accord.step", "accord.gc"), a)]
     assert all(_in(spans, syncs, a) for a in inside)

@@ -40,7 +40,7 @@ SPANS = {
     "accord.index.full_upload",
     "accord.service.build_batch", "accord.service.dispatch",
     "accord.service.upload", "accord.service.unpack",
-    "accord.kernel.consult", "accord.kernel.to_host",
+    "accord.kernel.consult", "accord.kernel.to_host", "accord.kernel.join_tk",
 }
 T, K = 256, 32
 
@@ -223,7 +223,8 @@ def test_txn_step_spans_and_syncs(k, gc, tmp_path):
     ``last_rows`` selections, the three scalar writes (status and active
     in the witness, status in the stabilisation) and the frontier's rows,
     plus the CSR build's ``nonzero`` and ``bincount`` where the join takes
-    the CSR route (K = 40; K = 32 takes the [T, K] kernels); ``gc_step``
+    the CSR route (K = 40), or ``accord.kernel.join_tk`` around the one
+    launch where it takes the [T, K] kernels (K = 32); ``gc_step``
     adds ``accord.gc`` and its eviction's sync."""
     run, batch = _step_run(3, k, gc)
     inc = torch.zeros((T, k), dtype=torch.int8)
@@ -237,6 +238,7 @@ def test_txn_step_spans_and_syncs(k, gc, tmp_path):
             "accord.sync.last_rows": 2, "accord.sync.put_scalar": 3,
             "accord.sync.frontier": 1, "accord.sync.query_csr": int(csr),
             "accord.sync.bincount": int(csr),
+            "accord.kernel.join_tk": int(not csr),
             "accord.gc": int(gc), "accord.sync.evict": int(gc)}
     assert count == {n: c for n, c in want.items() if c}
     for phase in ("accord.step.witness", "accord.step.stabilise",
@@ -246,6 +248,7 @@ def test_txn_step_spans_and_syncs(k, gc, tmp_path):
         assert _inside(spans, part, "accord.step.witness"), part
     assert _inside(spans, "accord.sync.query_csr", "accord.step.join")
     assert _inside(spans, "accord.sync.bincount", "accord.step.join")
+    assert _inside(spans, "accord.kernel.join_tk", "accord.step.join")
     assert _inside(spans, "accord.sync.put_scalar", "accord.step")
     assert _inside(spans, "accord.sync.frontier", "accord.step.execute")
     assert _inside(spans, "accord.sync.last_rows", "accord.step")

@@ -13,16 +13,19 @@ the answers), keeps the profile's Chrome trace and reads the port's
 - ``readings``: per dispatch, the host time in ``build_batch``, the four
   uploads, the consult's wrapper and launch, the read-back and the unpack;
   per refresh, ``apply_rows`` and the rest (the host's transposes and row
-  uploads); per step, the host syncs, the time waited at them, and the
-  time in ``txn_step`` and ``gc_step`` outside them;
+  uploads); per step, the host syncs, the time waited at them, the time
+  in ``txn_step`` and ``gc_step`` outside them, and the join's time on
+  the [T, K] route (``accord.kernel.join_tk``);
 - ``checks``: the mean ``accord.service.dispatch`` against the service's
   own ``dispatch_seconds / dispatch_count`` over the same window; the share
   of the dispatch that its four parts cover; the synchronising CUDA runtime
   calls (stream, device and event synchronises, device-to-host copies to
   pageable memory) inside ``accord.step`` and ``accord.gc``, and how many
-  of them lie outside every ``accord.sync.*`` span; the share of the
-  device's idle time inside ``bench.step``, ``bench.demand`` and
-  ``bench.refresh`` that falls inside an ``accord.*`` span;
+  of them lie outside every ``accord.sync.*`` span; the join's route
+  (``join_route``: ``accord.kernel.join_tk`` and ``accord.sync.query_csr``
+  spans a step); the share of the device's idle time inside
+  ``bench.step``, ``bench.demand`` and ``bench.refresh`` that falls inside
+  an ``accord.*`` span;
 - ``rows``, in a cell that runs the consult service: per dispatch in the
   window, the real rows, the padding rows of their buckets, and the
   service's own ``pad_rows_skipped`` where the checkout has it;
@@ -202,6 +205,11 @@ def split(events, counters):
                       "accord.step.lex_max", "accord.step.stabilise",
                       "accord.step.execute", "accord.gc"):
             readings[phase + "_us"] = exact(phase) / steps * 1e6
+        readings["step.join_tk_us"] = exact("accord.kernel.join_tk") \
+            / steps * 1e6
+        checks["join_route"] = {
+            "tk": count("accord.kernel.join_tk") / steps,
+            "csr": count("accord.sync.query_csr") / steps}
         host_tid = tid if any(r[4] == tid for r in runtime) else None
         step_iv = union(("accord.step", "accord.gc"))
         sync_iv = union("accord.sync.")
