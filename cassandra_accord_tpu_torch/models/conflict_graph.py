@@ -27,9 +27,15 @@ a step's memory near one state.
 A padding row (valid = False) scatters to slot T-1 and writes back that
 slot's old value, and a slot named by several rows takes the last one in
 batch order — the reference's CPU answer, kept here by writing only the
-winning valid rows (``graph_state.last_rows``).  So a valid row aimed at
+winning valid rows (``ops._kernels.write_rows``).  So a valid row aimed at
 slot T-1 followed by padding rows is not inserted, exactly as in the
 reference.
+
+On the card a step reads nothing back: the rows are written and the
+frontier is found by kernels (csrc/step_rows.cu), the join's CSR query is
+built at a capacity fixed by its shape (``deps_kernels.query_csr``), and
+the status codes go in as launch arguments, so the host queues the whole
+step while the device runs it.  ``gc_step`` reads its eviction list back.
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..observe.profiler import span
+from ..ops import _kernels
 from ..ops import graph_state as gs
 from ..ops import deps_kernels as dk
 
@@ -51,19 +58,6 @@ class TxnBatch(NamedTuple):
     valid: torch.Tensor     # [B] bool — allows padding a partial batch
 
 
-def _scatter_rows(state: gs.GraphState, slots: torch.Tensor,
-                  valid: torch.Tensor):
-    """(rows, targets): the batch rows whose write the reference keeps and
-    that change the state (valid winners), and their slots.  Padding rows
-    take part at slot T-1; a valid row's slot is wrapped or dropped as the
-    reference's scatter does (``graph_state.wrap_index``/``last_rows``)."""
-    valid = valid.to(torch.bool)
-    t = state.txn_slots
-    safe = torch.where(valid, gs.wrap_index(slots.long(), t), t - 1)
-    rows = gs.last_rows(safe, t, keep=valid)
-    return rows, safe[rows]
-
-
 def _preaccept(state: gs.GraphState, batch: TxnBatch, inplace: bool):
     with span("accord.step.witness"):
         with span("accord.step.join"):
@@ -73,17 +67,12 @@ def _preaccept(state: gs.GraphState, batch: TxnBatch, inplace: bool):
         deps = deps & batch.valid.to(torch.bool)[:, None]
         with span("accord.step.lex_max"):
             conflict_max, any_dep = dk.max_conflict_ts(state.ts, deps)
-        rows, dst = _scatter_rows(state, batch.slots, batch.valid)
-        put = gs.put_rows
-        state = gs.GraphState(
-            key_inc=put(state.key_inc, dst, batch.key_inc[rows], inplace),
-            ts=put(state.ts, dst, batch.txn_id[rows], inplace),
-            txn_id=put(state.txn_id, dst, batch.txn_id[rows], inplace),
-            kind=put(state.kind, dst, batch.kind[rows], inplace),
-            status=put(state.status, dst, gs.PREACCEPTED, inplace),
-            adj=put(state.adj, dst, deps[rows], inplace),
-            active=put(state.active, dst, True, inplace),
-        )
+        if not inplace:
+            state = gs.GraphState(*(x.clone() for x in state))
+        _kernels.write_rows(state, batch.slots, batch.valid,
+                            key_inc=batch.key_inc, ts=batch.txn_id,
+                            txn_id=batch.txn_id, kind=batch.kind,
+                            status=gs.PREACCEPTED, adj=deps, active=True)
         return state, deps, conflict_max, any_dep
 
 
@@ -91,10 +80,12 @@ def _stabilise(state: gs.GraphState, slots: torch.Tensor,
                execute_at: torch.Tensor, valid: torch.Tensor,
                inplace: bool) -> gs.GraphState:
     with span("accord.step.stabilise"):
-        rows, dst = _scatter_rows(state, slots, valid)
-        return state._replace(
-            ts=gs.put_rows(state.ts, dst, execute_at[rows], inplace),
-            status=gs.put_rows(state.status, dst, gs.STABLE, inplace))
+        if not inplace:
+            state = state._replace(ts=state.ts.clone(),
+                                   status=state.status.clone())
+        _kernels.write_rows(state, slots, valid, ts=execute_at,
+                            status=gs.STABLE)
+        return state
 
 
 def _execute(state: gs.GraphState, inplace: bool):

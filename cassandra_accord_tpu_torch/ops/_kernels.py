@@ -28,6 +28,14 @@ query as they lie, through a TMA ring and int8 wgmma, so those callers
 transpose nothing and build no CSR query.  Launches count as
 ``deps_join_dense_tk`` / ``max_conflict_dense_tk``.
 
+And two kernels of the conflict-graph step (csrc/step_rows.cu), so that
+``models.conflict_graph.txn_step`` reads nothing back from the card:
+``write_rows`` writes a batch's winning rows into the state in place (the
+last row in batch order to name a slot, as the reference's scatter keeps
+it), and ``frontier_rows`` clears the ready rows whose adjacency meets a
+blocked column (the reference's signed product test), reading only those
+rows.  Launches count as ``write_rows`` / ``frontier``.
+
 Each source's header says what bounds it on the H100.
 
 The rule.  ``form="auto"`` (the default) takes ``join_form(b, t, k,
@@ -89,7 +97,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .graph_state import INVALIDATED, TS_LANES, ts_less, wrap_index
+from .graph_state import (INVALIDATED, TS_LANES, GraphState, last_writers,
+                          put_rows, ts_less, wrap_index)
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
@@ -102,7 +111,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: Dict[str, int] = {"deps_join": 0, "max_conflict": 0,
                             "deps_join_dense": 0, "max_conflict_dense": 0,
                             "deps_join_dense_tk": 0,
-                            "max_conflict_dense_tk": 0, "fused_consult": 0}
+                            "max_conflict_dense_tk": 0, "fused_consult": 0,
+                            "write_rows": 0, "frontier": 0}
 
 FORMS = ("auto", "csr", "dense")
 # the dense forms' int32 sums stay exact (255 * 2^14 keys < 2^31), and the
@@ -217,6 +227,12 @@ def lib() -> ctypes.CDLL:
         so.fused_consult_launch.restype = i32
         so.fused_consult_scratch_ints.argtypes = [i32, i32]
         so.fused_consult_scratch_ints.restype = ctypes.c_longlong
+        i64 = ctypes.c_longlong
+        so.write_rows_launch.argtypes = [vp, vp, i32, i64, i32] + [vp] * 9 + \
+            [i32] + [vp] * 4
+        so.write_rows_launch.restype = i32
+        so.frontier_launch.argtypes = [vp] * 3 + [i64] * 2 + [vp]
+        so.frontier_launch.restype = i32
         _LIB = so
     return _LIB
 
@@ -764,3 +780,136 @@ def fused_consult(live_T, key_T, ts, txn_id, kind, status, active, offsets,
         raise RuntimeError(f"fused_consult launch failed: CUDA error {rc}")
     LAUNCHES["fused_consult"] += 1
     return deps, max_lanes
+
+
+# ---------------------------------------------------------------------------
+# the conflict-graph step's row writes and execution frontier
+# ---------------------------------------------------------------------------
+
+def write_rows_plain(state: GraphState, slots, valid, key_inc=None, ts=None,
+                     txn_id=None, kind=None, status=None, adj=None,
+                     active=False) -> None:
+    """``write_rows`` in torch ops (the CPU's form): padding rows aimed at
+    T - 1, the winning rows from ``graph_state.last_writers``, then one
+    ``put_rows`` a field."""
+    t = state.txn_slots
+    valid = valid.to(torch.bool)
+    safe = torch.where(valid, wrap_index(slots.long(), t), t - 1)
+    win = last_writers(safe, t, keep=valid)
+    dst = safe[win]
+    for name, src in (("key_inc", key_inc), ("ts", ts), ("txn_id", txn_id),
+                      ("kind", kind), ("adj", adj)):
+        if src is not None:
+            put_rows(getattr(state, name), dst, src[win], inplace=True)
+    if status is not None:
+        state.status[dst] = status
+    if active:
+        state.active[dst] = True
+
+
+def _byte_rows(x: torch.Tensor) -> torch.Tensor:
+    """int8 bytes of a bool or int8 tensor, as ``put``ting it into an int8
+    field converts it (a bool is viewed, not copied)."""
+    x = x.contiguous()
+    return x.view(torch.int8) if x.dtype == torch.bool else x.to(torch.int8)
+
+
+def write_rows(state: GraphState, slots: torch.Tensor, valid: torch.Tensor,
+               key_inc: Optional[torch.Tensor] = None,
+               ts: Optional[torch.Tensor] = None,
+               txn_id: Optional[torch.Tensor] = None,
+               kind: Optional[torch.Tensor] = None,
+               status: Optional[int] = None,
+               adj: Optional[torch.Tensor] = None,
+               active: bool = False) -> None:
+    """Write batch row b's fields into slot ``slots[b]`` of ``state``, in
+    place, for the rows that win: valid, the slot wrapped once inside [0,
+    T), and no later row aimed at the same slot, a padding row aiming at
+    T - 1 (``graph_state.last_writers``).  The fields: ``key_inc`` [B, K],
+    ``ts`` and ``txn_id`` [B, 5] lanes, ``kind`` [B], ``adj`` [B, T] (bool
+    or int8) rows, the status code ``status`` and, with ``active``,
+    the active flag.  A field left None is not written.  On the card one
+    launch (csrc/step_rows.cu) and nothing read back; on the CPU the plain
+    version."""
+    if state.status.device.type == "cpu":
+        return write_rows_plain(state, slots, valid, key_inc, ts, txn_id,
+                                kind, status, adj, active)
+    dev = state.status.device
+    t, k = state.txn_slots, state.key_slots
+    b = slots.numel()
+    if t >= 2 ** 31 or b >= 2 ** 19:
+        raise ValueError(f"shape out of the kernel's range: B={b} T={t}")
+    slots = slots.to(torch.int64).contiguous()
+    valid = valid.to(torch.bool).contiguous()
+    _check("slots", slots, torch.int64, (b,), dev)
+    _check("valid", valid, torch.bool, (b,), dev)
+    src = {}                          # held until the launch has read them
+    for name, x, dtype, width in (
+            ("key_inc", key_inc, torch.int8, (k,)),
+            ("ts", ts, torch.int32, (TS_LANES,)),
+            ("txn_id", txn_id, torch.int32, (TS_LANES,)),
+            ("kind", kind, torch.int8, ()),
+            ("adj", adj, torch.int8, (t,)),
+            ("status", status, torch.int8, ()),
+            ("active", active or None, torch.bool, ())):
+        if x is None:
+            continue
+        field = getattr(state, name)
+        _check(f"state.{name}", field, dtype, (t, *width), dev)
+        if isinstance(x, torch.Tensor):
+            x = _byte_rows(x) if dtype == torch.int8 \
+                else x.to(dtype).contiguous()
+            _check(name, x, dtype, (b, *width), dev)
+            src[name] = x
+
+    def pair(name):
+        x = src.get(name)
+        return (None, None) if x is None \
+            else (_ptr(x), _ptr(getattr(state, name)))
+    if b == 0 or t == 0:
+        return None
+    rc = lib().write_rows_launch(
+        _ptr(slots), _ptr(valid), b, t, k, *pair("key_inc"), *pair("ts"),
+        *pair("txn_id"), *pair("kind"),
+        None if status is None else _ptr(state.status),
+        0 if status is None else int(status), *pair("adj"),
+        _ptr(state.active) if active else None, _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"write_rows launch failed: CUDA error {rc}")
+    LAUNCHES["write_rows"] += 1
+    return None
+
+
+def frontier_rows_plain(adj: torch.Tensor, blocked: torch.Tensor,
+                        ready: torch.Tensor) -> torch.Tensor:
+    """``frontier_rows`` in torch ops (the CPU's form)."""
+    rows = torch.nonzero(ready).squeeze(1)
+    blocked = blocked.to(torch.int32)[None, :]
+    ready[rows] = (adj[rows].to(torch.int32) * blocked).sum(dim=1) <= 0
+    return ready
+
+
+def frontier_rows(adj: torch.Tensor, blocked: torch.Tensor,
+                  ready: torch.Tensor) -> torch.Tensor:
+    """Clear ``ready[i]`` (an [R] bool, in place) where row i of the [R, N]
+    int8 adjacency ``adj`` sums to more than 0 over the ``blocked`` [N]
+    columns (the reference's product test; for 0/1 rows: some edge onto a
+    blocked slot), and return ``ready``.  Only the rows that enter ready
+    are read: on the card by one launch (csrc/step_rows.cu), nothing read
+    back; on the CPU the plain version."""
+    if adj.device.type == "cpu":
+        return frontier_rows_plain(adj, blocked, ready)
+    dev = adj.device
+    r, n = adj.shape
+    if adj.dtype not in (torch.int8, torch.bool):
+        raise TypeError(f"adj must be int8 or bool, got {adj.dtype}")
+    adj = _byte_rows(adj)
+    blocked = blocked.to(torch.bool).contiguous()
+    _check("blocked", blocked, torch.bool, (n,), dev)
+    _check("ready", ready, torch.bool, (r,), dev)
+    rc = lib().frontier_launch(_ptr(adj), _ptr(blocked), _ptr(ready), r, n,
+                               _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"frontier launch failed: CUDA error {rc}")
+    LAUNCHES["frontier"] += 1
+    return ready

@@ -28,19 +28,20 @@ to the dense kernels K1d/K2d on that layout (``_kernels.deps_join_tk`` /
 aligned bases) or ``form="dense"`` forces it (a shape they refuse then
 raises); otherwise (or with ``form="csr"``) they convert to the ``[K, T]``
 wrappers' layout — the incidence transposed to ``[K, T]`` int8 bytes, the
-query to CSR with its values beside the columns, whose size is read back —
-and call the CSR kernels K1 (``_kernels.deps_join``) and/or K2
-(``_kernels.max_conflict``, csrc/consult.cu) with those values, which sum
-the signed products as the [T, K] kernels do.  On CPU tensors every
+query to CSR with its values beside the columns, at a capacity fixed by
+its shape (``query_csr``: nothing read back) — and call the CSR kernels
+K1 (``_kernels.deps_join``) and/or K2 (``_kernels.max_conflict``,
+csrc/consult.cu) with those values, which sum the signed products as the
+[T, K] kernels do.  On CPU tensors every
 wrapper runs its plain torch version.
 The graph functions are ``jax.jit`` code in the reference, not Pallas, so
-they are torch ops on the tensors' device; their while loops are Python
-loops with the reference's bounds, reading one flag back from the device
-per round.
+they are torch ops on the tensors' device, but for ``kahn_frontier``'s row
+test (``_kernels.frontier_rows``); their while loops are Python loops with
+the reference's bounds, reading one flag back from the device per round.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -71,22 +72,17 @@ def _bool_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.to(dt), b.to(dt)) > 0
 
 
-def _bool_matvec(a: torch.Tensor, v: torch.Tensor,
-                 rows: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """[R] bool: row r of the [T, N] 0/1 matrix ``a`` (row ``rows[r]`` when
-    ``rows`` is given) meets the [N] bool ``v``, i.e. the rows of
-    ``_bool_matmul(a, v[:, None])[:, 0]`` — on ``a``'s own int8/bool
-    elements in row chunks, never as a full-size float copy (at T = 65,536
-    the adjacency is 4 GiB of int8)."""
-    n = a.shape[1]
-    r = a.shape[0] if rows is None else rows.numel()
+def _bool_matvec(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """[T] bool: row r of the [T, N] 0/1 matrix ``a`` meets the [N] bool
+    ``v``, i.e. ``_bool_matmul(a, v[:, None])[:, 0]`` — on ``a``'s own
+    int8/bool elements in row chunks, never as a full-size float copy (at
+    T = 65,536 the adjacency is 4 GiB of int8)."""
+    r, n = a.shape
     out = torch.empty((r,), dtype=torch.bool, device=a.device)
     vv = v.to(torch.bool).to(a.dtype)[None, :]
     step = max(1, MATVEC_CHUNK_ELEMS // max(1, n))
     for r0 in range(0, r, step):
-        block = a[r0:r0 + step] if rows is None \
-            else a.index_select(0, rows[r0:r0 + step])
-        torch.any(block * vv, dim=1, out=out[r0:r0 + step])
+        torch.any(a[r0:r0 + step] * vv, dim=1, out=out[r0:r0 + step])
     return out
 
 
@@ -99,19 +95,27 @@ def incidence_T(inc: torch.Tensor) -> torch.Tensor:
 def query_csr(batch_key_inc: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Dense [B, K] query -> CSR over its nonzero entries, row-major:
-    offsets [B+1] and cols [N] int32, and their int8 values [N]."""
-    b = batch_key_inc.shape[0]
-    q = _s8(batch_key_inc)
-    with span("accord.sync.query_csr"):
-        nz = torch.nonzero(q)                                       # [N, 2]
-    # two host syncs on the card: torch reads the rows' min and max back
-    with span("accord.sync.bincount"):
-        counts = torch.bincount(nz[:, 0], minlength=b)
-    offsets = torch.zeros((b + 1,), dtype=torch.int32,
-                          device=batch_key_inc.device)
-    offsets[1:] = torch.cumsum(counts, 0)
-    return (offsets, nz[:, 1].to(torch.int32).contiguous(),
-            q[nz[:, 0], nz[:, 1]].contiguous())
+    offsets [B+1] int32, and cols int32 and their int8 values at a capacity
+    of B*K, the first offsets[B] of them the entries (the kernels and plain
+    versions read no further; the rest are 0).  Fixed shapes throughout, so
+    nothing is read back from the card: each entry's place is its count of
+    nonzero entries before it, and the others go to one spare place past
+    the capacity, dropped."""
+    b, k = batch_key_inc.shape
+    q = _s8(batch_key_inc).reshape(-1)
+    dev = q.device
+    nz = q != 0
+    at = torch.cumsum(nz, 0)                            # [B*K] int64
+    offsets = torch.zeros((b + 1,), dtype=torch.int32, device=dev)
+    if k:
+        offsets[1:] = at.view(b, k)[:, -1]
+    place = torch.where(nz, at - 1, b * k)
+    col = torch.arange(k, dtype=torch.int32, device=dev).repeat(b)
+    cols = torch.zeros((b * k + 1,), dtype=torch.int32, device=dev) \
+        .scatter_(0, place, col)
+    vals = torch.zeros((b * k + 1,), dtype=torch.int8, device=dev) \
+        .scatter_(0, place, q)
+    return offsets, cols[:-1], vals[:-1]
 
 
 def _i8(x: torch.Tensor) -> torch.Tensor:
@@ -335,14 +339,11 @@ def kahn_frontier(adj: torch.Tensor, status: torch.Tensor,
     Commands.java:617-652).  Returns [T] bool.
 
     Only the rows of active STABLE slots can be ready, so only those rows of
-    the adjacency are read (the reference's product covers every row and
+    the adjacency are read (``_kernels.frontier_rows``: one launch on the
+    card, nothing read back; the reference's product covers every row and
     masks the others out after: the same answer)."""
     dep_done = (status == APPLIED) | (status == INVALIDATED) | ~active
-    ready = active & (status == STABLE)
-    with span("accord.sync.frontier"):
-        rows = torch.nonzero(ready).squeeze(1)
-    ready[rows] = ~_bool_matvec(adj, ~dep_done, rows)
-    return ready
+    return _kernels.frontier_rows(adj, ~dep_done, active & (status == STABLE))
 
 
 def peel_levels(ready, active: torch.Tensor) -> torch.Tensor:

@@ -151,14 +151,12 @@ def wrap_index(index: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where(index < 0, index + n, index)
 
 
-def last_rows(slots: torch.Tensor, t: int,
-              keep: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Indices (int64, ascending) of the rows of ``slots`` [B] that are the
-    last in batch order to name their slot — the row whose write the
-    reference's scatter keeps — restricted to rows where ``keep`` holds.
-    Rows whose slot lies outside [0, t) win nothing: the reference's scatter
-    drops them.  Writing only these rows gives the reference's answer with
-    no duplicate or out-of-range index in the scatter."""
+def last_writers(slots: torch.Tensor, t: int,
+                 keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[B] bool: the rows of ``slots`` [B] that are the last in batch order
+    to name their slot — the row whose write the reference's scatter keeps
+    — restricted to rows where ``keep`` holds.  Rows whose slot lies
+    outside [0, t) win nothing: the reference's scatter drops them."""
     s = slots.long()
     inside = (s >= 0) & (s < t)
     s = torch.where(inside, s, t)           # the drops share one spare slot
@@ -166,8 +164,15 @@ def last_rows(slots: torch.Tensor, t: int,
     last = torch.full((t + 1,), -1, dtype=torch.long, device=s.device) \
         .scatter_reduce(0, s, order, "amax", include_self=True)
     win = inside & (last[s] == order)
-    if keep is not None:
-        win &= keep
+    return win if keep is None else win & keep
+
+
+def last_rows(slots: torch.Tensor, t: int,
+              keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Indices (int64, ascending) of the ``last_writers`` rows.  Writing
+    only these rows gives the reference's answer with no duplicate or
+    out-of-range index in the scatter."""
+    win = last_writers(slots, t, keep)
     with span("accord.sync.last_rows"):
         return torch.nonzero(win).squeeze(1)
 

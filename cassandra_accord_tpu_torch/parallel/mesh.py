@@ -42,6 +42,7 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 from ..models.conflict_graph import TxnBatch
+from ..ops import _kernels
 from ..ops import deps_kernels as dk
 from ..ops import graph_state as gs
 
@@ -258,10 +259,9 @@ def build_sharded_step(mesh: Mesh):
                           | ~state.active)                        # [T/n]
         dep_done = all_gather_cat(dep_done_local, mesh)           # [T]
         # only the rows of active STABLE slots can be ready, so only those
-        # rows of the local adjacency are read (dk.kahn_frontier)
-        ready = state.active & (state.status == gs.STABLE)
-        cand = torch.nonzero(ready).squeeze(1)
-        ready[cand] = ~dk._bool_matvec(state.adj, ~dep_done, cand)
+        # rows of the local adjacency are read (dk.kahn_frontier's kernel)
+        ready = _kernels.frontier_rows(
+            state.adj, ~dep_done, state.active & (state.status == gs.STABLE))
         state = state._replace(
             status=state.status.masked_fill_(ready, gs.APPLIED))
         applied = all_gather_cat(ready, mesh)                     # [T]

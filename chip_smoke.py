@@ -182,6 +182,11 @@ REPLACES = {
     # one program, device_service/kernel.py:37-68); it replaces the Pallas
     # kernel and the XLA max half (``also_replaces`` in the kernels line)
     "fused_consult": TPU_KERNEL,
+    # the conflict-graph step's own kernels: the reference's scatters of
+    # the witness (and, alike, the stabilisation's at :89) and its
+    # frontier's product, both plain XLA
+    "write_rows": "cassandra_accord_tpu/models/conflict_graph.py:57",
+    "frontier": "cassandra_accord_tpu/ops/deps_kernels.py:261",
 }
 ALSO_REPLACES = {"fused_consult": MAX_HALF}
 SOURCES = {"deps_join": "cassandra_accord_tpu_torch/csrc/consult.cu",
@@ -193,11 +198,14 @@ SOURCES = {"deps_join": "cassandra_accord_tpu_torch/csrc/consult.cu",
                "cassandra_accord_tpu_torch/csrc/dense_join_tk.cu",
            "max_conflict_dense_tk":
                "cassandra_accord_tpu_torch/csrc/dense_join_tk.cu",
-           "fused_consult": "cassandra_accord_tpu_torch/csrc/consult.cu"}
+           "fused_consult": "cassandra_accord_tpu_torch/csrc/consult.cu",
+           "write_rows": "cassandra_accord_tpu_torch/csrc/step_rows.cu",
+           "frontier": "cassandra_accord_tpu_torch/csrc/step_rows.cu"}
 CSR_KERNELS = ("deps_join", "max_conflict")
 # the service's window on the CSR form: one K12 launch
 FUSED = "fused_consult"
 TK_KERNELS = ("deps_join_dense_tk", "max_conflict_dense_tk")
+STEP_KERNELS = ("write_rows", "frontier")
 # the wrappers the recorders hold: the [K, T] ones (a form each), the
 # [T, K] ones and K12; their plain versions are ``<name>_plain``
 WRAPPERS = ("deps_join", "max_conflict", "deps_join_tk", "max_conflict_tk",
@@ -2442,7 +2450,7 @@ def _graph_step(ctx):
         state.active)
     need(torch.equal(ready, ready_e),
          "full-width frontier: dense differs from the edge kernel")
-    # eager: the frontier reads its candidate rows back, so no graph capture
+    # eager, as the step calls it
     frontier_ms = eager_ms(
         torch, lambda: dk.kahn_frontier(state.adj, state.status, state.active),
         5, ctx["flush"])
@@ -2467,8 +2475,111 @@ def _graph_step(ctx):
            "profiles": profiles,
            "peak_bytes": peak, "state_bytes": sum(
                x.numel() * x.element_size() for x in state)}
-    del state, deps, done, ready, ready_e, src, dst
+    del deps, done, ready, ready_e, src, dst
+    out["step_kernels"] = _step_kernels(ctx, state, steps, launches)
+    del state
     return out
+
+
+def _step_kernels(ctx, state, steps, launches):
+    """The step's own kernels at the graph path's shapes, on clones of its
+    final state: ``write_rows`` (the witness's fields, then the
+    stabilisation's) and ``frontier`` each bit-equal to its plain version,
+    launched twice and once a step on the counted path; their ms (from a
+    CUDA graph), plain ms and bounds go to the kernels line."""
+    import numpy as np
+    torch = ctx["torch"]
+    from cassandra_accord_tpu_torch.ops import _kernels as K
+    from cassandra_accord_tpu_torch.ops import graph_state as gs
+    need(launches["write_rows"] == 2 * steps,
+         f"write_rows launched {launches['write_rows']} times, expected "
+         f"two per step ({2 * steps})")
+    need(launches["frontier"] == steps,
+         f"frontier launched {launches['frontier']} times, expected one "
+         f"per step ({steps})")
+    t, k, b = state.txn_slots, state.key_slots, GRAPH["B"]
+    dev, flush = ctx["dev"], ctx["flush"]
+    rng = np.random.default_rng(23)
+    # slots drawn with repeats from [-T - 3, T + 3) (wrapped and dropped
+    # ones), a fifth padding, and a valid row at T - 1 before padding rows
+    slots = rng.integers(-t - 3, t + 3, b)
+    valid = rng.random(b) < 0.8
+    slots[0], valid[0] = t - 1, True
+    slots = torch.from_numpy(slots.astype(np.int32)).to(dev)
+    valid = torch.from_numpy(valid).to(dev)
+    key_inc = torch.randint(-3, 4, (b, k), dtype=torch.int8, device=dev)
+    lanes = torch.randint(0, 1 << 30, (b, gs.TS_LANES), dtype=torch.int32,
+                          device=dev)
+    kind = torch.randint(0, 6, (b,), dtype=torch.int8, device=dev)
+    deps = torch.rand(b, t, device=dev) < 0.01
+    win = int(gs.last_writers(
+        torch.where(valid, gs.wrap_index(slots.long(), t), t - 1), t,
+        keep=valid).sum())
+
+    def witness(write, st):
+        write(st, slots, valid, key_inc=key_inc, ts=lanes, txn_id=lanes,
+              kind=kind, status=gs.PREACCEPTED, adj=deps, active=True)
+
+    def stabilise(write, st):
+        write(st, slots, valid, ts=lanes + 1, status=gs.STABLE)
+    rows = []
+    got = gs.GraphState(*(x.clone() for x in state))
+    want = gs.GraphState(*(x.clone() for x in state))
+    for label, phase, nbytes in (
+            ("witness", witness, 2 * (k + 41 + t) + 2),
+            ("stabilisation", stabilise, 2 * 20 + 2)):
+        phase(K.write_rows, got)
+        phase(K.write_rows_plain, want)
+        sync(ctx)
+        for f, x, y in zip(gs.GraphState._fields, got, want):
+            need(torch.equal(x, y), f"write_rows ({label}): state.{f} "
+                 "differs from its plain version")
+        # slots and valid flags read, each winning row's fields moved
+        nbytes = 9 * b + win * nbytes
+        rows.append({
+            "name": "write_rows", "shape": f"graph_{label}_T{t}_K{k}_B{b}",
+            "path": "graph", "B": b, "T": t, "K": k, "nnz": win,
+            "packed": False, "max_abs_err": 0,
+            "ms": device_ms(torch, lambda: phase(K.write_rows, got), 20,
+                            flush),
+            "warm_ms": device_ms(torch, lambda: phase(K.write_rows, got), 20),
+            "method_floor_ms": method_floor_ms(ctx, 20),
+            "wrapper_host_us": host_us(
+                torch, lambda: phase(K.write_rows, got), 20),
+            "plain_ms": eager_ms(
+                torch, lambda: phase(K.write_rows_plain, want), 5, flush),
+            "library_ms": None,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": nbytes, "ops": 0})
+    del got, want, key_inc, deps
+    # the final state's frontier: the ready rows' adjacency read once,
+    # the blocked and ready flags read, the ready flags written
+    blocked = ~((state.status == gs.APPLIED)
+                | (state.status == gs.INVALIDATED) | ~state.active)
+    ready = state.active & (state.status == gs.STABLE)
+    cand = int(ready.sum())
+    out = K.frontier_rows(state.adj, blocked, ready.clone())
+    want = K.frontier_rows_plain(state.adj, blocked, ready.clone())
+    need(torch.equal(out, want), "frontier differs from its plain version")
+    scratch = ready.clone()
+
+    def frontier():
+        scratch.copy_(ready)
+        K.frontier_rows(state.adj, blocked, scratch)
+    nbytes = cand * t + 3 * t
+    rows.append({
+        "name": "frontier", "shape": f"graph_final_T{t}_K{k}", "path": "graph",
+        "B": cand, "T": t, "K": k, "nnz": int(want.sum()), "packed": False,
+        "max_abs_err": 0, "ms": device_ms(torch, frontier, 20, flush),
+        "warm_ms": device_ms(torch, frontier, 20),
+        "method_floor_ms": method_floor_ms(ctx, 20),
+        "wrapper_host_us": host_us(torch, frontier, 20),
+        "plain_ms": eager_ms(torch, lambda: K.frontier_rows_plain(
+            state.adj, blocked, ready.clone()), 5, flush),
+        "library_ms": None, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "bytes": nbytes, "ops": 0})
+    ctx["rows"].extend(rows)
+    return rows
 
 
 def _graph_trajectory(ctx):
@@ -3346,7 +3457,8 @@ FUSED_KEYS = ("k12_ms_turns", "k1_k2_ms", "k1_k2_host_us")
 def kernels_line(ctx):
     """One entry per kernel and form (K1, K2 in the CSR form; K1d, K2d in
     the dense form on [K, T] and on [T, K]; K12, both halves in one launch,
-    the service's window): the main path's (the burn's;
+    the service's window; the step's ``write_rows`` and ``frontier``, at
+    the graph phase's shapes with its launch counts): the main path's (the burn's;
     for the [T, K] kernels the one-shot consult of config 4's batch)
     launch count and the numbers at the largest call it made (the dense
     kernels: at config 4, their own path: the service's or the one-shot
@@ -3412,15 +3524,19 @@ def kernels_line(ctx):
             head = next((r for r in rows if r["shape"] == CONFIG4), rows[0])
         # the [T, K] kernels' own path: the one-shot consult of config 4's
         # batch (launches zeroed before it, read after); the others': the burn
+        # the step's kernels': the graph phase's counted steps
         oneshot = ctx.get("oneshot_launches", {})
-        own = oneshot.get(CONFIG4, {}) if name in TK_KERNELS else burn
+        own, own_path = burn, "burn"
+        if name in TK_KERNELS:
+            own, own_path = oneshot.get(CONFIG4, {}), \
+                "one-shot consult, config 4"
+        elif name in STEP_KERNELS:
+            own, own_path = ctx.get("graph_launches", {}), "graph step"
         e = {"name": name, "route": "cuda", "source": SOURCES[name],
              "replaces": REPLACES[name],
              **({"also_replaces": ALSO_REPLACES[name]}
                 if name in ALSO_REPLACES else {}),
-             "launches": own.get(name, 0),
-             "launches_path": ("one-shot consult, config 4"
-                               if name in TK_KERNELS else "burn"),
+             "launches": own.get(name, 0), "launches_path": own_path,
              "replay_launches": ctx.get("replay_launches", {}).get(name, {}),
              "graph_launches": ctx.get("graph_launches", {}).get(name, 0),
              "mesh_launches": ctx.get("mesh_launches", {}).get(name, 0),

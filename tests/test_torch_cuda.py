@@ -22,6 +22,8 @@ from cassandra_accord_tpu_torch.ops import deps_kernels as dk
 from cassandra_accord_tpu_torch.ops import frontier_kernels as fk
 from cassandra_accord_tpu_torch.ops import graph_state as gs
 
+import step_cases
+
 
 @pytest.fixture
 def cuda():
@@ -1095,31 +1097,44 @@ def test_service_windows_read_back_only_real_rows_on_card(cuda):
     assert all(shape[-1] for shape in svc.jit_shapes), "not bit-packed"
 
 
-@pytest.mark.parametrize("k", [32, 40])
-def test_step_syncs_are_the_sync_spans_on_card(cuda, k, tmp_path):
-    """Every host sync point of a ``txn_step`` and ``gc_step`` on the card
-    lies in an ``accord.sync.*`` span, and each such span holds one; the
-    [T, K] route (K = 32) opens ``accord.kernel.join_tk`` and no CSR span."""
+def _step_inputs(k, device):
+    """A live state of T = 1,024 slots and K = ``k`` keys and a batch of 16
+    on ``device``: K = 32 takes the join's [T, K] route, K = 40 its CSR
+    route."""
     t, b = 1024, 16
     rng = np.random.default_rng(k)
-    state = gs.init_state(t, k, device=cuda)
+    state = gs.init_state(t, k, device=device)
     state.key_inc[:] = torch.from_numpy(
-        (rng.random((t, k)) < 0.2).astype(np.int8)).to(cuda)
+        (rng.random((t, k)) < 0.2).astype(np.int8)).to(device)
     lanes = torch.from_numpy(rng.integers(1, 500, (t, 5)).astype(np.int32))
-    state.txn_id[:] = lanes.to(cuda)
-    state.ts[:] = lanes.to(cuda)
+    state.txn_id[:] = lanes.to(device)
+    state.ts[:] = lanes.to(device)
     state.status[:] = torch.from_numpy(
-        rng.integers(1, 7, t).astype(np.int8)).to(cuda)
+        rng.integers(1, 7, t).astype(np.int8)).to(device)
     state.active[:] = True
+    state.adj[:] = torch.from_numpy(
+        (rng.random((t, t)) < 0.01).astype(np.int8)).to(device)
     batch = cg.TxnBatch(
         slots=torch.from_numpy(rng.choice(t, b, replace=False)
-                               .astype(np.int32)).to(cuda),
+                               .astype(np.int32)).to(device),
         key_inc=torch.from_numpy((rng.random((b, k)) < 0.15)
-                                 .astype(np.int8)).to(cuda),
+                                 .astype(np.int8)).to(device),
         txn_id=torch.from_numpy(rng.integers(500, 900, (b, 5))
-                                .astype(np.int32)).to(cuda),
-        kind=torch.from_numpy(rng.integers(0, 5, b).astype(np.int8)).to(cuda),
-        valid=torch.ones(b, dtype=torch.bool, device=cuda))
+                                .astype(np.int32)).to(device),
+        kind=torch.from_numpy(rng.integers(0, 5, b).astype(np.int8))
+        .to(device),
+        valid=torch.ones(b, dtype=torch.bool, device=device))
+    return state, batch
+
+
+@pytest.mark.parametrize("k", [32, 40])
+def test_step_syncs_are_the_sync_spans_on_card(cuda, k, tmp_path):
+    """A ``txn_step`` on the card has no host sync point and opens no
+    ``accord.sync.*`` span, on the [T, K] route (K = 32, which opens
+    ``accord.kernel.join_tk``) and on the CSR route (K = 40); the
+    ``gc_step`` after it syncs once, inside ``accord.sync.evict`` in
+    ``accord.gc``."""
+    state, batch = _step_inputs(k, cuda)
     watermark = torch.tensor([1000, 0, 0, 0, 0], dtype=torch.int32,
                              device=cuda)
 
@@ -1129,13 +1144,157 @@ def test_step_syncs_are_the_sync_spans_on_card(cuda, k, tmp_path):
     step()
     spans, points = _profiled(step, tmp_path)
     syncs = [n for n in spans if n.startswith("accord.sync.")]
-    assert {"accord.sync.last_rows", "accord.sync.put_scalar",
-            "accord.sync.frontier", "accord.sync.evict"} <= set(syncs)
-    assert ("accord.sync.query_csr" in syncs) == (k == 40)
+    assert syncs == ["accord.sync.evict"]
     assert ("accord.kernel.join_tk" in spans) == (k == 32)
-    inside = [a for a, _ in points
-              if _in(spans, ("accord.step", "accord.gc"), a)]
-    assert all(_in(spans, syncs, a) for a in inside)
-    for name in syncs:
-        for a, b in spans[name]:
-            assert any(a <= at <= b for at in inside), name
+    assert len(spans["accord.step"]) == 1
+    assert not [a for a, _ in points if _in(spans, ("accord.step",), a)]
+    in_gc = [a for a, _ in points if _in(spans, ("accord.gc",), a)]
+    assert in_gc and all(_in(spans, syncs, a) for a in in_gc)
+    for a, b in spans["accord.sync.evict"]:
+        assert any(a <= at <= b for at in in_gc)
+
+
+@pytest.mark.parametrize("k", [32, 40])
+def test_txn_step_captures_in_a_cuda_graph(cuda, k):
+    """``txn_step`` on either route of the join captures in a CUDA graph (a
+    capture refuses any read-back, so this proves the step has none), and
+    a replay from the same state gives the eager step's deps, applied set
+    and state, bit for bit, with one ``write_rows`` launch for each of the
+    witness and the stabilisation and one ``frontier`` launch."""
+    state, batch = _step_inputs(k, cuda)
+    start = [x.clone() for x in state]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                      # warm-up, off capture
+        cg.txn_step(state, batch)
+    torch.cuda.current_stream().wait_stream(side)
+    for x, x0 in zip(state, start):
+        x.copy_(x0)
+    graph = torch.cuda.CUDAGraph()
+    before = dict(_kernels.LAUNCHES)
+    with torch.cuda.graph(graph):
+        _s, deps, applied = cg.txn_step(state, batch)
+    assert _kernels.LAUNCHES["write_rows"] == before["write_rows"] + 2
+    assert _kernels.LAUNCHES["frontier"] == before["frontier"] + 1
+    for x, x0 in zip(state, start):
+        x.copy_(x0)
+    graph.replay()
+    torch.cuda.synchronize()
+    got = (deps.clone(), applied.clone(), [x.clone() for x in state])
+    for x, x0 in zip(state, start):
+        x.copy_(x0)
+    _s, want_deps, want_applied = cg.txn_step(state, batch)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want_deps) and torch.equal(got[1], want_applied)
+    for name, x, y in zip(gs.GraphState._fields, got[2], state):
+        assert torch.equal(x, y), name
+
+
+def _write_fields(fields, bt, deps, device):
+    up = {f: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+          for f, v in bt.items()}
+    return (gs.state_from_numpy(fields, device=device), up,
+            torch.from_numpy(deps).to(device))
+
+
+@pytest.mark.parametrize("t", [61, 4096])
+@pytest.mark.parametrize("case", sorted(step_cases.WRITE_CASES))
+def test_write_rows_kernel_equals_plain_and_last_rows(cuda, case, t):
+    """``write_rows`` on the card, the witness's fields (key row, lanes,
+    kind, status, adjacency row, active) and then the stabilisation's
+    (executeAt, status), equal its plain version on the CPU (the winners
+    of ``last_rows``' rule, one ``put_rows`` a field): a slot named twice,
+    wrapped slots, slots
+    outside [-T, T), padding rows at T-1 after a valid row aimed there and
+    before one, all padding, B = 1, 300 rows with collisions; T = 61 takes
+    the byte copies, T = 4,096 the 16-byte ones."""
+    fields, bt, deps, exec_at = step_cases.write_case(case, t)
+    states = []
+    for device, write in ((cuda, _kernels.write_rows),
+                          ("cpu", _kernels.write_rows_plain)):
+        state, b, d = _write_fields(fields, bt, deps, device)
+        write(state, b["slots"], b["valid"], key_inc=b["key_inc"],
+              ts=b["txn_id"], txn_id=b["txn_id"], kind=b["kind"],
+              status=gs.PREACCEPTED, adj=d, active=True)
+        # copies: a CPU state's numpy arrays are views of its tensors
+        states.append({f: v.copy()
+                       for f, v in gs.state_to_numpy(state).items()})
+        write(state, b["slots"], b["valid"],
+              ts=torch.from_numpy(exec_at).to(device), status=gs.STABLE)
+        states.append(gs.state_to_numpy(state))
+    for f in gs.GraphState._fields:
+        for i in (0, 1):
+            assert np.array_equal(states[i][f], states[2 + i][f]), (i, f)
+
+
+@pytest.mark.parametrize("t", [61, 4100, 4096])
+@pytest.mark.parametrize("case", sorted(step_cases.FRONTIER_CASES))
+def test_frontier_kernel_equals_plain(cuda, case, t):
+    """``kahn_frontier`` on the card (one ``frontier`` launch) equals its
+    plain torch form on the CPU: no ready row, every row ready, a row
+    blocked only by the last column, inactive and INVALIDATED
+    dependencies, signed bytes; T = 61 and 4,100 are no multiple of the
+    kernel's 16-byte loads, T = 4,096 is."""
+    adj, status, active = step_cases.frontier_case(case, t)
+    before = _kernels.LAUNCHES["frontier"]
+    got = dk.kahn_frontier(*(torch.from_numpy(x).to(cuda)
+                             for x in (adj, status, active)))
+    want = dk.kahn_frontier(*(torch.from_numpy(x)
+                              for x in (adj, status, active)))
+    assert torch.equal(got.cpu(), want)
+    assert _kernels.LAUNCHES["frontier"] == before + 1
+    # as bool rows, and through the wrapper on rows wider than they are many
+    ready = torch.from_numpy(active).to(cuda)
+    blocked = torch.from_numpy(status != gs.APPLIED).to(cuda)
+    wide = torch.from_numpy(adj[: t // 2]).to(cuda)
+    assert torch.equal(
+        _kernels.frontier_rows(wide, blocked, ready[: t // 2].clone()).cpu(),
+        _kernels.frontier_rows_plain(wide.cpu(), blocked.cpu(),
+                                     ready[: t // 2].cpu()))
+    assert torch.equal(
+        dk.kahn_frontier(torch.from_numpy(adj != 0).to(cuda),
+                         *(torch.from_numpy(x).to(cuda)
+                           for x in (status, active))).cpu(),
+        dk.kahn_frontier(torch.from_numpy(adj != 0),
+                         *(torch.from_numpy(x) for x in (status, active))))
+
+
+@pytest.mark.parametrize("k", [40, 1000])
+@pytest.mark.parametrize("case", sorted(step_cases.CSR_CASES))
+def test_query_csr_on_card_equals_nonzero_csr(cuda, case, k):
+    """The fixed-capacity CSR query built on the card (no read-back) holds
+    the ``nonzero``-built one, and K1's and K2's CSR kernels answer the
+    same from both and as their plain versions: rows with no key, no key
+    at all, a row with all K keys, signed values."""
+    b, t = 17, 4104
+    q = torch.from_numpy(step_cases.csr_query(case, b, k)).to(cuda)
+    offsets, cols, vals = dk.query_csr(q)
+    want = step_cases.nonzero_csr(q)
+    n = int(want[0][-1])
+    assert torch.equal(offsets, want[0]) and cols.shape == (b * k,)
+    assert torch.equal(cols[:n], want[1]) and torch.equal(vals[:n], want[2])
+    rng = np.random.default_rng(k)
+    inc = torch.from_numpy(rng.integers(-2, 3, (t, k)).astype(np.int8))
+    lanes = torch.from_numpy(rng.integers(0, 40, (t, 5)).astype(np.int32))
+    g = dict(inc_T=dk.incidence_T(inc), txn_id=lanes, ts=lanes + 1,
+             kind=torch.from_numpy(rng.integers(0, 6, t).astype(np.int8)),
+             status=torch.from_numpy(rng.integers(0, 7, t).astype(np.int8)),
+             active=torch.from_numpy(rng.random(t) < 0.9),
+             before=torch.from_numpy(rng.integers(0, 40, (b, 5))
+                                     .astype(np.int32)),
+             qkind=torch.from_numpy(rng.integers(0, 6, b).astype(np.int8)))
+    answers = []
+    for dev, csr in ((cuda, (offsets, cols, vals)), (cuda, want),
+                     ("cpu", tuple(x.cpu() for x in want))):
+        x = {n_: v.to(dev) for n_, v in g.items()}
+        off, c, v = csr
+        answers.append([
+            _kernels.deps_join(x["inc_T"], x["txn_id"], x["kind"],
+                               x["status"], x["active"], off, c, x["before"],
+                               x["qkind"], form="csr", vals=v).cpu(),
+            _kernels.max_conflict(x["inc_T"], x["ts"], x["txn_id"],
+                                  x["active"], off, c, form="csr",
+                                  vals=v).cpu()])
+    for got in answers[1:]:
+        assert torch.equal(answers[0][0], got[0])
+        assert torch.equal(answers[0][1], got[1])

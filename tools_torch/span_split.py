@@ -22,8 +22,8 @@ the answers), keeps the profile's Chrome trace and reads the port's
   calls (stream, device and event synchronises, device-to-host copies to
   pageable memory) inside ``accord.step`` and ``accord.gc``, and how many
   of them lie outside every ``accord.sync.*`` span; the join's route
-  (``join_route``: ``accord.kernel.join_tk`` and ``accord.sync.query_csr``
-  spans a step); the share of the device's idle time inside
+  (``join_route``: ``accord.kernel.join_tk`` spans a step, and the other
+  ``accord.step.join`` spans, the CSR route's); the share of the device's idle time inside
   ``bench.step``, ``bench.demand`` and ``bench.refresh`` that falls inside
   an ``accord.*`` span;
 - ``rows``, in a cell that runs the consult service: per dispatch in the
@@ -209,7 +209,8 @@ def split(events, counters):
             / steps * 1e6
         checks["join_route"] = {
             "tk": count("accord.kernel.join_tk") / steps,
-            "csr": count("accord.sync.query_csr") / steps}
+            "csr": (count("accord.step.join")
+                    - count("accord.kernel.join_tk")) / steps}
         host_tid = tid if any(r[4] == tid for r in runtime) else None
         step_iv = union(("accord.step", "accord.gc"))
         sync_iv = union("accord.sync.")
