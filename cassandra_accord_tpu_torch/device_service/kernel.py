@@ -15,49 +15,81 @@ directly:
 
 As the reference computes a window in one program (one jitted function,
 read back with one ``device_get``), the port computes it in one launch and
-reads it back in one copy: on the CSR form (``_kernels.join_form`` from the
-window's sizes unless ``form`` says) K12 (``fused_consult``) answers both
-halves; on the dense form K1d and K2d write into one buffer of the same
-layout (``_kernels.consult_out``).  ``to_host`` brings that buffer back.
-For CPU buffers the wrappers run their plain torch versions (which
-densify the query with an int32 scatter-add).  With ``packed`` the deps
-mask comes back bit-packed ``[B, T/8]`` uint8, little-endian, and
-``unpack_deps`` turns the rows read back into bool rows.
+reads it back in one copy: where ``_kernels.join_form`` says CSR, K12
+(``fused_consult``) answers both halves; where it says dense, K1d and K2d
+write into one buffer of the same layout (``_kernels.consult_out``).
+``to_host`` brings that buffer back.  For CPU buffers the wrappers run
+their plain torch versions (which densify the query with an int32
+scatter-add).  With ``packed`` the deps mask comes back bit-packed
+``[B, T/8]`` uint8, little-endian, and ``unpack_deps`` turns the rows read
+back into bool rows.
+
+``consult_batch`` is a window's whole dispatch, the one the service and the
+resolver's one-shot consult share: a ``batch.ConsultBatch`` in, the host's
+answers out.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from ..observe.profiler import span
 from ..ops import _kernels
+from .batch import ConsultBatch
 
 
 def ragged_consult_t(live_T, key_T, ts, txn_id, kind, status, active,
-                     flat_cols, offsets, before, qkind,
-                     packed: bool = False, form: str = "auto"
+                     flat_cols, offsets, before, qkind, packed: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(deps [B, T] bool or [B, T/8] uint8, max_lanes [B, 5] int32), views
     of one buffer."""
     with span("accord.kernel.consult"):
-        _kernels._check_form(form)
         k, t = live_T.shape
         b = offsets.numel() - 1
-        if form == "auto":
-            form = _kernels.join_form(b, t, k, flat_cols.numel())
-        if form == "csr":
+        if _kernels.join_form(b, t, k, flat_cols.numel()) == "csr":
             return _kernels.fused_consult(live_T, key_T, ts, txn_id, kind,
                                           status, active, offsets, flat_cols,
                                           before, qkind, packed=packed)
         deps, max_lanes = _kernels.consult_out(b, t, packed, live_T.device)
-        _kernels.deps_join(live_T, txn_id, kind, status, active, offsets,
-                           flat_cols, before, qkind, packed=packed, form=form,
-                           out=deps)
-        _kernels.max_conflict(key_T, ts, txn_id, active, offsets, flat_cols,
-                              form=form, out=max_lanes)
+        _kernels.deps_join_dense(live_T, txn_id, kind, status, active,
+                                 offsets, flat_cols, before, qkind,
+                                 packed=packed, out=deps)
+        _kernels.max_conflict_dense(key_T, ts, txn_id, active, offsets,
+                                    flat_cols, out=max_lanes)
         return deps, max_lanes
+
+
+def packs(buffers: Dict[str, torch.Tensor]) -> bool:
+    """Whether a window over these buffers comes back bit-packed: only
+    across a real transfer link (on the CPU packing is pure extra compute)
+    and where it pays, T >= 32768 (T % 8 == 0)."""
+    t = buffers["live_T"].shape[1]
+    return t >= 32768 and t % 8 == 0 and buffers["live_T"].device.type != "cpu"
+
+
+def consult_batch(batch: ConsultBatch, buffers: Dict[str, torch.Tensor]
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """One window: upload ``batch``, one launch over ``buffers`` (the
+    kernels' layout, ``index.front_from_host``), the real rows of both
+    answers read back in one copy, the deps unpacked.  Returns (deps
+    [rows, T] bool, max_lanes [rows, 5] int32) on the host."""
+    t = buffers["live_T"].shape[1]
+    packed = packs(buffers)
+    query = [torch.from_numpy(a) for a in (
+        batch.flat_cols, batch.offsets, batch.before, batch.kind)]
+    with span("accord.service.upload"):
+        query = [a.to(buffers["live_T"].device) for a in query]
+    deps, max_lanes = ragged_consult_t(
+        buffers["live_T"], buffers["key_T"], buffers["ts"],
+        buffers["txn_id"], buffers["kind"], buffers["status"],
+        buffers["active"], *query, packed=packed)
+    deps, max_lanes = to_host(deps[:batch.rows], max_lanes[:batch.rows])
+    if packed:
+        with span("accord.service.unpack"):
+            deps = unpack_deps(deps, t)
+    return deps, max_lanes
 
 
 def to_host(deps: torch.Tensor, max_lanes: torch.Tensor

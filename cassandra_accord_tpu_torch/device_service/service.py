@@ -21,9 +21,9 @@ the resolver's dirty-key tracking decides what is still servable), so every
 answer is exact with respect to its submission point — byte-identical to the
 eager path the burn tests reconcile against.
 
-Backend: ``torch`` runs the consult kernels (K12, both halves in one
-launch, or K1d and K2d for wide rows; ops/_kernels) on the service's
-device — the hand-written CUDA kernels on the card, their
+Backend: ``torch`` runs a window through ``kernel.consult_batch`` (K12,
+both halves in one launch, or K1d and K2d for wide rows; ops/_kernels) on
+the service's device — the hand-written CUDA kernels on the card, their
 plain torch versions when the caller asked for the CPU; both count as
 ``device_consults``: it is the kernel tier.  ``host`` is the deterministic
 host tier — the resolver's own vectorized numpy pass, same answers
@@ -40,11 +40,9 @@ from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
-import torch
-
 from ..device import resolve_device
 from ..observe.profiler import span
-from .batch import ConsultBatch, build_batch, pow2_bucket, split_rows
+from .batch import ConsultBatch, build_batch, split_rows
 from .index import DoubleBufferedIndex
 
 TS_LANES = 5
@@ -307,30 +305,11 @@ class DeviceConsultService:
             return deps, max_lanes
 
     def _dispatch_torch(self, batch: ConsultBatch, buffers):
-        from .kernel import ragged_consult_t, to_host, unpack_deps
+        from .kernel import consult_batch, packs
         k, t = buffers["live_T"].shape
-        dev = buffers["live_T"].device
-        # bit-packing the result only pays when it crosses a real transfer
-        # link; on the CPU it is pure extra compute
-        packed = t >= 32768 and t % 8 == 0 and dev.type != "cpu"
-        self.jit_shapes.add(batch.shape_signature + (t, k, packed))
-
-        query = [torch.from_numpy(a) for a in (
-            batch.flat_cols, batch.offsets, batch.before, batch.kind)]
-        with span("accord.service.upload"):
-            query = [a.to(dev) for a in query]
-        # one launch; the real rows of both answers, prefixes of the one
-        # buffer, read back in one copy (kernel.py)
-        deps, max_lanes = ragged_consult_t(
-            buffers["live_T"], buffers["key_T"], buffers["ts"],
-            buffers["txn_id"], buffers["kind"], buffers["status"],
-            buffers["active"], *query, packed=packed)
-        self.pad_rows_skipped += deps.shape[0] - batch.rows
-        deps, max_lanes = to_host(deps[:batch.rows], max_lanes[:batch.rows])
-        if packed:
-            with span("accord.service.unpack"):
-                deps = unpack_deps(deps, t)
-        return deps, max_lanes
+        self.jit_shapes.add(batch.shape_signature + (t, k, packs(buffers)))
+        self.pad_rows_skipped += batch.before.shape[0] - batch.rows
+        return consult_batch(batch, buffers)
 
     # -- telemetry ------------------------------------------------------------
     def _sample(self, queue_depth: int, batch_rows: int) -> None:

@@ -43,7 +43,7 @@ work amortizes launch+transfer):
 - device tier — the consult kernels on the device: K12 (deps and max in
                one launch; K1d and K2d for wide rows) of ops/_kernels over
                the [K, T] incidence, through the persistent service or a
-               one-shot ragged_consult_t call.
+               one-shot call of the service's dispatch (consult_batch).
                Serves large batches / deep indexes.
 
 The canonical index lives in host numpy (mutations are in-place row writes);
@@ -1115,43 +1115,17 @@ class TpuDepsResolver(DepsResolver):
         return deps, max_lanes
 
     def _consult_device(self, q, before, kind):
-        """The consult on the device — one K12 launch for the whole batch
-        (device_service.kernel.ragged_consult_t, the service's own call;
-        K1d and K2d for wide rows) over the buffers ``_sync_device`` keeps
-        in the kernels' layout, both answers read back in one copy.  The
-        query goes over as CSR; the batch dim pads to a power of two, as in
-        the reference, so shapes stay bucketed."""
-        import torch
-        from ..device_service.kernel import (ragged_consult_t, to_host,
-                                             unpack_deps)
+        """The consult on the device — the service's own dispatch
+        (``device_service.kernel.consult_batch``: one launch for the whole
+        batch, both answers read back in one copy) over the buffers
+        ``_sync_device`` keeps in the kernels' layout.  The rows go over as
+        one ragged batch, padded to power-of-two buckets."""
+        from ..device_service.batch import build_batch
+        from ..device_service.kernel import consult_batch
         self.device_consults += q.shape[0]
         self._sync_device()
-        b = q.shape[0]
-        b_pad = 1 << max(0, b - 1).bit_length()
-        rows, cols = np.nonzero(q)
-        offsets = np.zeros((b_pad + 1,), dtype=np.int32)
-        offsets[1:b + 1] = np.cumsum(np.bincount(rows, minlength=b))
-        offsets[b + 1:] = offsets[b]            # padding rows: no keys
-        before_p = np.zeros((b_pad, TS_LANES), dtype=np.int32)
-        before_p[:b] = before
-        kind_p = np.zeros((b_pad,), dtype=np.int8)
-        kind_p[:b] = kind
-        s = self._device
-        dev = self.device()
-
-        def up(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-        # transfer-bound regime: bit-pack the deps mask on device (8×
-        # smaller result) and unpack host-side
-        packed = self._t >= 32768 and self._t % 8 == 0
-        deps, max_lanes = ragged_consult_t(
-            s["live_T"], s["key_T"], s["ts"], s["txn_id"], s["kind"],
-            s["status"], s["active"], up(cols.astype(np.int32)), up(offsets),
-            up(before_p), up(kind_p), packed=packed)
-        deps, max_lanes = to_host(deps[:b], max_lanes[:b])
-        if packed:
-            deps = unpack_deps(deps, self._t)
-        return deps, max_lanes
+        batch = build_batch([np.nonzero(row)[0] for row in q], before, kind)
+        return consult_batch(batch, self._device)
 
     def _sync_device(self) -> None:
         """Upload the canonical host index to the device if stale (lazy: only
@@ -1392,9 +1366,9 @@ def _calibrate_threshold(device) -> float:
     ``device`` and the host tier's element rate; the device tier is worth it
     above elems ≈ host_rate × round_trip.  Once per device per process (one
     measurement serves every store's resolver)."""
-    import torch
+    from ..device_service.batch import build_batch
     from ..device_service.index import front_from_host
-    from ..device_service.kernel import ragged_consult_t, to_host
+    from ..device_service.kernel import consult_batch
     key = str(device)
     if key in _CALIBRATED:
         return _CALIBRATED[key]
@@ -1409,14 +1383,11 @@ def _calibrate_threshold(device) -> float:
                          "active": zeros((t,), np.bool_)}, t, k, device)
 
     def round_trip():
-        # what _consult_device does per batch: upload the CSR query (one
-        # key per row), one launch, copy both answers back in one copy
-        q = [torch.from_numpy(a).to(device) for a in (
-            np.arange(b + 1, dtype=np.int32), np.arange(b, dtype=np.int32),
-            zeros((b, TS_LANES), np.int32), zeros((b,), np.int8))]
-        to_host(*ragged_consult_t(s["live_T"], s["key_T"], s["ts"],
-                                  s["txn_id"], s["kind"], s["status"],
-                                  s["active"], q[1], q[0], q[2], q[3]))
+        # what _consult_device does per batch: one key per row, the batch
+        # uploaded, one launch, both answers copied back in one copy
+        consult_batch(build_batch([(i,) for i in range(b)],
+                                  zeros((b, TS_LANES), np.int32),
+                                  zeros((b,), np.int8)), s)
 
     round_trip()                               # first use (kernel build)
     t0 = time.perf_counter()

@@ -2,55 +2,44 @@
 
 K1 ``deps_join`` is the port of the TPU join kernel
 (cassandra_accord_tpu/ops/pallas_join.py::_join_kernel); K2 ``max_conflict``
-is the timestamp-proposal half of the same consult.  Each has two forms,
-hand-written CUDA for sm_90a, with the same arguments and answers:
+is the timestamp-proposal half of the same consult.  Each kernel is
+hand-written CUDA for sm_90a and has one wrapper here, named as its
+``LAUNCHES`` counter:
 
-- ``csr`` (csrc/consult.cu): each query row ORs the [K, T] incidence rows
-  of its own keys, so a call reads nnz*T index bytes.  Launches count as
-  ``deps_join`` / ``max_conflict``.
-- ``dense`` (csrc/dense_join.cu): the overlap as an int8 tensor-core
-  product (a TMA ring and wgmma) of the binarized query tile against the
-  whole index, which a call reads once per 256 query rows (K*T bytes).
-  Launches count as ``deps_join_dense`` / ``max_conflict_dense``.
-
-The service's window takes both halves in one launch: K12
-``fused_consult`` (csrc/consult.cu), the CSR form of K1 over ``live_T`` and
-of K2 over ``key_T`` with the slot data and the staged CSR slice read once,
-returning both answers as views of one buffer (``consult_out``: the lanes
-first, then the deps) that ``device_service.kernel.to_host`` brings back in
-one copy.  Launches count as ``fused_consult``.
-
-And a third entry pair for the callers that hold the index as the
-reference does, ``[T, K]`` (``ops/deps_kernels.py``'s one-shot consults,
-the model and sharded steps): ``deps_join_tk`` / ``max_conflict_tk``
-(csrc/dense_join_tk.cu), the dense product on ``[T, K]`` and the ``[B, K]``
-query as they lie, through a TMA ring and int8 wgmma, so those callers
-transpose nothing and build no CSR query.  Launches count as
-``deps_join_dense_tk`` / ``max_conflict_dense_tk``.
-
-And two kernels of the conflict-graph step (csrc/step_rows.cu), so that
-``models.conflict_graph.txn_step`` reads nothing back from the card:
-``write_rows`` writes a batch's winning rows into the state in place (the
-last row in batch order to name a slot, as the reference's scatter keeps
-it), and ``frontier_rows`` clears the ready rows whose adjacency meets a
-blocked column (the reference's signed product test), reading only those
-rows.  Launches count as ``write_rows`` / ``frontier``.
+- ``deps_join`` / ``max_conflict`` (csrc/consult.cu), the CSR form: each
+  query row ORs the [K, T] incidence rows of its own keys, so a call reads
+  nnz*T index bytes.
+- ``deps_join_dense`` / ``max_conflict_dense`` (csrc/dense_join.cu): the
+  overlap as an int8 tensor-core product (a TMA ring and wgmma) of the
+  binarized query tile against the whole [K, T] index, which a call reads
+  once per 256 query rows (K*T bytes).
+- ``fused_consult`` (csrc/consult.cu), K12: the service's window, the CSR
+  form of K1 over ``live_T`` and of K2 over ``key_T`` in one launch with
+  the slot data and the staged CSR slice read once, both answers views of
+  one buffer (``consult_out``: the lanes first, then the deps) that
+  ``device_service.kernel.to_host`` brings back in one copy.
+- ``deps_join_tk`` / ``max_conflict_tk`` (csrc/dense_join_tk.cu, counted
+  as ``deps_join_dense_tk`` / ``max_conflict_dense_tk``): the dense product
+  on the index as the reference holds it, ``[T, K]``, and the ``[B, K]``
+  query as they lie, so their callers (``ops/deps_kernels.py``: the
+  one-shot consults, the model and sharded steps) transpose nothing.
+- ``write_rows`` / ``frontier_rows`` (csrc/step_rows.cu, counted as
+  ``write_rows`` / ``frontier``), so that ``models.conflict_graph.txn_step``
+  reads nothing back from the card: the first writes a batch's winning rows
+  into the state in place (the last row in batch order to name a slot, as
+  the reference's scatter keeps it), the second clears the ready rows whose
+  adjacency meets a blocked column (the reference's signed product test),
+  reading only those rows.
 
 Each source's header says what bounds it on the H100.
 
-The rule.  ``form="auto"`` (the default) takes ``join_form(b, t, k,
-n_cols)``, a pure function of host-known sizes (``n_cols = cols.numel()``,
-exact on the one-shot path, at most twice nnz on the service's pow2
-buckets): dense when the rows name at least ``DENSE_COLS_PER_KEY`` columns
-per index key and ``DENSE_ROWS`` query rows, K lies in [``DENSE_MIN_K``,
-``DENSE_MAX_K``] and T is a multiple of 16; else CSR.  Nothing is read
-back from the card to decide.  The constants come from a sweep of both
-forms on the card (PERF.md §6).
-``form="csr"`` or ``"dense"`` forces a form (tests, ``chip_smoke.py``);
-any other value raises.  For a ``[T, K]`` caller ``join_form(b, t, k,
-layout="tk")`` picks between the ``[T, K]`` entries ("dense") and the
-transpose, CSR query and ``[K, T]`` wrappers ("csr"), from a sweep of the
-one-shot consult's two routes on the card (PERF.md §6).
+The rules, one per index layout, of host-known sizes only (nothing is read
+back from the card to decide): ``join_form(b, t, k, n_cols)`` for the
+[K, T] index (``device_service.kernel.ragged_consult_t``: "csr" takes K12,
+"dense" K1d and K2d), and ``tk_refusal(k, ...)`` for the [T, K] index
+(``ops/deps_kernels.py``: None takes the ``_tk`` kernels, a reason the
+transpose, a CSR query with values and K1/K2).  Their constants come from
+sweeps on the card (PERF.md).
 
 Build: every ``*.cu`` under ``csrc/`` is compiled by its own ``nvcc
 -gencode arch=compute_90a,code=sm_90a -O3 -c``, all started together, and
@@ -59,14 +48,12 @@ under ``build/torch_kernels/`` beside the package (named by the hash of
 every source and header and the flags, so an edited source rebuilds),
 loaded with ``ctypes``.  Pointers and the stream go over as ``c_void_p``.
 
-Dispatch: each wrapper takes the PLAIN torch version (same module, same
-arguments) only for tensors on the CPU, whatever the form.  For CUDA
-tensors it launches the chosen form's kernel on
-``torch.cuda.current_stream()`` or raises — on a failed build, a refused
+Dispatch: each wrapper runs its PLAIN torch version (same module, same
+arguments) for tensors on the CPU.  For CUDA tensors it launches its kernel
+on ``torch.cuda.current_stream()`` or raises: on a failed build, a refused
 launch (the C entry returns ``cudaGetLastError()``), or inputs the kernel
-does not take; it never falls back to the other form or the plain version.
-``LAUNCHES`` counts kernel launches, one per wrapper call that reached the
-card, under the form's name.
+does not take; it never falls back to another kernel or the plain version.
+``LAUNCHES`` counts the launches that reached the card.
 
 Layout: the index incidence is pre-transposed ``[K, T]`` uint8 (0/1), the
 query a CSR pair ``offsets [B+1]`` / ``cols [N]`` int32 (duplicates legal,
@@ -75,7 +62,7 @@ and the others outside [0, K) are dropped, in the kernels and the plain
 versions alike, as the reference's densify), lanes ``[*, 5]`` int32, kinds
 and statuses int8, ``active`` bool.  A kind code indexes the witness table
 as the reference's gather does: a negative code wraps once, then every
-code clamps into the table.  ``vals`` (``[N]`` int8, CSR form only) gives
+code clamps into the table.  ``vals`` (``[N]`` int8, K1 and K2 only) gives
 each column a signed value, for the ``[T, K]`` callers' route through these
 wrappers: the index bytes are then read as int8 and the overlap is the
 reference's, ``sum_c vals[c] * inc[c, t] > 0``.  The ``_tk`` entries take
@@ -106,7 +93,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# kernel launches that reached the card, per kernel and form (tests and
+# kernel launches that reached the card, per kernel (tests and
 # chip_smoke.py zero these before a run and read them after)
 LAUNCHES: Dict[str, int] = {"deps_join": 0, "max_conflict": 0,
                             "deps_join_dense": 0, "max_conflict_dense": 0,
@@ -114,7 +101,6 @@ LAUNCHES: Dict[str, int] = {"deps_join": 0, "max_conflict": 0,
                             "max_conflict_dense_tk": 0, "fused_consult": 0,
                             "write_rows": 0, "frontier": 0}
 
-FORMS = ("auto", "csr", "dense")
 # the dense forms' int32 sums stay exact (255 * 2^14 keys < 2^31), and the
 # [K, T] form's query bytes small
 DENSE_MAX_K = 16384
@@ -488,25 +474,16 @@ def tk_refusal(k: int, *tensors: torch.Tensor) -> Optional[str]:
     return None
 
 
-def join_form(b: int, t: int, k: int, n_cols: Optional[int] = None,
-              layout: str = "kt") -> str:
-    """"dense" or "csr" for a call of B rows over an index of T slots and K
-    keys.  ``layout="kt"`` (the service's [K, T] index, a CSR query of
-    ``n_cols`` columns, ``cols.numel()``): dense when the rows name at
-    least DENSE_COLS_PER_KEY columns per key and DENSE_ROWS rows (the CSR
-    form re-reads n_cols*T index bytes, the dense form's time grows with
-    K*T and the rows), K is at least DENSE_MIN_K (below it rows are short
-    and the CSR form's single launch is cheaper) and at most DENSE_MAX_K,
-    and T is a multiple of 16 (the index's tensor map takes a row pitch of
-    a multiple of 16 bytes).  ``layout="tk"`` (a [T, K] index
-    and a dense [B, K] query, whose CSR form first transposes the index
-    and reads the query's size back): dense whenever the [T, K] kernels
-    take K (``tk_refusal``).  Host-known sizes only: nothing is read back
-    from the card."""
-    if layout == "tk":
-        return "dense" if tk_refusal(k) is None else "csr"
-    if layout != "kt":
-        raise ValueError(f"layout must be 'kt' or 'tk', got {layout!r}")
+def join_form(b: int, t: int, k: int, n_cols: int) -> str:
+    """The [K, T] index's rule: "dense" (K1d and K2d) or "csr" (K12) for a
+    call of B rows and ``n_cols`` CSR columns (``cols.numel()``) over T
+    slots and K keys.  Dense when the rows name at least
+    DENSE_COLS_PER_KEY columns per key and DENSE_ROWS rows (the CSR form
+    re-reads n_cols*T index bytes, the dense form's time grows with K*T and
+    the rows), K is at least DENSE_MIN_K (below it rows are short and the
+    CSR form's single launch is cheaper) and at most DENSE_MAX_K, and T is
+    a multiple of 16 (the index's tensor map takes a row pitch of a
+    multiple of 16 bytes)."""
     tiles = -(-b // DENSE_ROWS)
     if (DENSE_MIN_K <= k <= DENSE_MAX_K and t % 16 == 0
             and n_cols >= DENSE_COLS_PER_KEY * k * tiles):
@@ -514,27 +491,13 @@ def join_form(b: int, t: int, k: int, n_cols: Optional[int] = None,
     return "csr"
 
 
-def _check_form(form: str) -> None:
-    if form not in FORMS:
-        raise ValueError(f"form must be one of {FORMS}, got {form!r}")
-
-
-def _choose(form: str, inc_T: torch.Tensor, b: int, n_cols: int,
-            signed: bool = False) -> str:
+def _check_dense(inc_T: torch.Tensor) -> None:
     k, t = inc_T.shape
-    if signed:
-        # the dense form reads the query as bits: values take the CSR form
-        if form == "dense":
-            raise ValueError("a signed query (vals) takes the CSR form")
-        return "csr"
-    chosen = join_form(b, t, k, n_cols) if form == "auto" else form
-    if chosen == "dense" and (k > DENSE_MAX_K or t % 16
-                              or inc_T.data_ptr() % 16):
+    if k > DENSE_MAX_K or t % 16 or inc_T.data_ptr() % 16:
         raise ValueError(
-            f"the dense form takes K <= {DENSE_MAX_K}, T % 16 == 0 and a "
+            f"the dense kernels take K <= {DENSE_MAX_K}, T % 16 == 0 and a "
             f"16-byte aligned index, got K={k}, T={t}, "
             f"address % 16 = {inc_T.data_ptr() % 16}")
-    return chosen
 
 
 def _scratch(n: int, name: str, dev: torch.device) -> Optional[torch.Tensor]:
@@ -547,6 +510,14 @@ def _scratch(n: int, name: str, dev: torch.device) -> Optional[torch.Tensor]:
 
 def _ptr_or_null(x: Optional[torch.Tensor]) -> Optional[ctypes.c_void_p]:
     return None if x is None else _ptr(x)
+
+
+def _launched(name: str, rc: int, out):
+    """``out``, once the launch that writes it returned ``rc`` 0."""
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+    return out
 
 
 def _output(out: Optional[torch.Tensor], shape: tuple, dtype: torch.dtype,
@@ -570,51 +541,76 @@ def _into(out: Optional[torch.Tensor], got: torch.Tensor) -> torch.Tensor:
     return out.copy_(got)
 
 
+def _deps_out(out, kind, status, qkind, b, t, packed, dev):
+    """The deps half's checks (slot and query kind codes, statuses, the
+    packed width), then its output: ``out`` checked, or a new one."""
+    _check("kind", kind, torch.int8, (t,), dev)
+    _check("status", status, torch.int8, (t,), dev)
+    _check("qkind", qkind, torch.int8, (b,), dev)
+    if packed and t % 8:
+        raise ValueError(f"bit-packed output needs T % 8 == 0, got T={t}")
+    return _output(out, (b, t // 8) if packed else (b, t),
+                   torch.uint8 if packed else torch.bool, dev)
+
+
+def _deps_args(inc_T, txn_id, kind, status, active, offsets, cols, before,
+               qkind, b, t, k):
+    """The leading and trailing arguments K1's and K1d's C entries share."""
+    return ((_ptr(inc_T), _ptr(txn_id), _ptr(kind), _ptr(status),
+             _ptr(active), _ptr(offsets), _ptr(cols)),
+            (_ptr(before), _ptr(qkind), ctypes.c_ulonglong(_WIT_BITS),
+             _WIT_NP.shape[0], INVALIDATED, b, t, k))
+
+
 def deps_join(inc_T, txn_id, kind, status, active, offsets, cols, before,
-              qkind, packed: bool = False, form: str = "auto",
+              qkind, packed: bool = False,
               vals: Optional[torch.Tensor] = None,
               out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K1: the dependency mask [B, T] bool, or [B, T/8] uint8 bit-packed,
-    through the CSR or the dense kernel (``form``, see ``join_form``); with
-    ``vals`` the signed overlap, CSR form only.  ``out``: the tensor to
-    write it into (one of ``consult_out``'s views)."""
-    _check_form(form)
+    """K1, the CSR kernel: the dependency mask [B, T] bool, or [B, T/8]
+    uint8 bit-packed; with ``vals`` the signed overlap.  ``out``: the
+    tensor to write it into (one of ``consult_out``'s views)."""
     if inc_T.device.type == "cpu":
         return _into(out, deps_join_plain(inc_T, txn_id, kind, status, active,
                                           offsets, cols, before, qkind,
                                           packed, vals))
     b, t, k = _check_common(inc_T, txn_id, active, offsets, cols, before,
                             vals)
-    dev = inc_T.device
-    _check("kind", kind, torch.int8, (t,), dev)
-    _check("status", status, torch.int8, (t,), dev)
-    _check("qkind", qkind, torch.int8, (b,), dev)
-    if packed and t % 8:
-        raise ValueError(f"bit-packed output needs T % 8 == 0, got T={t}")
-    dense = _choose(form, inc_T, b, cols.numel(), vals is not None) == "dense"
-    out = _output(out, (b, t // 8) if packed else (b, t),
-                  torch.uint8 if packed else torch.bool, dev)
+    out = _deps_out(out, kind, status, qkind, b, t, packed, inc_T.device)
     if b == 0 or t == 0:
         return out
-    so = lib()
-    name = "deps_join_dense" if dense else "deps_join"
-    head = (_ptr(inc_T), _ptr(txn_id), _ptr(kind), _ptr(status),
-            _ptr(active), _ptr(offsets), _ptr(cols))
-    tail = (_ptr(before), _ptr(qkind), ctypes.c_ulonglong(_WIT_BITS),
-            _WIT_NP.shape[0], INVALIDATED, b, t, k)
-    if dense:
-        # scratch: the query as bytes, built by the launch's first kernel
-        scratch = _scratch(so.deps_join_dense_scratch_ints(b, t, k), name, dev)
-        rc = so.deps_join_dense_launch(
-            *head, *tail, cols.numel(), int(bool(packed)),
-            _ptr_or_null(scratch), _ptr(out), _stream(dev))
-    else:
-        rc = so.deps_join_launch(*head, _ptr_or_null(vals), *tail,
-                                 int(bool(packed)), _ptr(out), _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
-    return out
+    head, tail = _deps_args(inc_T, txn_id, kind, status, active, offsets,
+                            cols, before, qkind, b, t, k)
+    rc = lib().deps_join_launch(*head, _ptr_or_null(vals), *tail,
+                                int(bool(packed)), _ptr(out),
+                                _stream(inc_T.device))
+    return _launched("deps_join", rc, out)
+
+
+def deps_join_dense(inc_T, txn_id, kind, status, active, offsets, cols,
+                    before, qkind, packed: bool = False,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K1d, the dense kernel on the [K, T] index: ``deps_join``'s answer
+    for 0/1 columns (no values); raises for K > DENSE_MAX_K, T % 16 != 0
+    or an index not 16-byte aligned."""
+    if inc_T.device.type == "cpu":
+        return _into(out, deps_join_plain(inc_T, txn_id, kind, status, active,
+                                          offsets, cols, before, qkind,
+                                          packed))
+    _check_dense(inc_T)
+    b, t, k = _check_common(inc_T, txn_id, active, offsets, cols, before)
+    out = _deps_out(out, kind, status, qkind, b, t, packed, inc_T.device)
+    if b == 0 or t == 0:
+        return out
+    so, dev = lib(), inc_T.device
+    head, tail = _deps_args(inc_T, txn_id, kind, status, active, offsets,
+                            cols, before, qkind, b, t, k)
+    # scratch: the query as bytes, built by the launch's first kernel
+    scratch = _scratch(so.deps_join_dense_scratch_ints(b, t, k),
+                       "deps_join_dense", dev)
+    rc = so.deps_join_dense_launch(*head, *tail, cols.numel(),
+                                   int(bool(packed)), _ptr_or_null(scratch),
+                                   _ptr(out), _stream(dev))
+    return _launched("deps_join_dense", rc, out)
 
 
 def _check_tk(inc, query, txn_id, active, before=None):
@@ -647,13 +643,7 @@ def deps_join_tk(inc, txn_id, kind, status, active, query, before, qkind,
                                   before, qkind, packed)
     b, t, k = _check_tk(inc, query, txn_id, active, before)
     dev = inc.device
-    _check("kind", kind, torch.int8, (t,), dev)
-    _check("status", status, torch.int8, (t,), dev)
-    _check("qkind", qkind, torch.int8, (b,), dev)
-    if packed and t % 8:
-        raise ValueError(f"bit-packed output needs T % 8 == 0, got T={t}")
-    out = torch.empty((b, t // 8) if packed else (b, t),
-                      dtype=torch.uint8 if packed else torch.bool, device=dev)
+    out = _deps_out(None, kind, status, qkind, b, t, packed, dev)
     if b == 0 or t == 0:
         return out
     rc = lib().deps_join_tk_launch(
@@ -661,10 +651,7 @@ def deps_join_tk(inc, txn_id, kind, status, active, query, before, qkind,
         _ptr(active), _ptr(before), _ptr(qkind), ctypes.c_ulonglong(_WIT_BITS),
         _WIT_NP.shape[0], INVALIDATED, b, t, k, int(bool(packed)), _ptr(out),
         _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"deps_join_dense_tk launch failed: CUDA error {rc}")
-    LAUNCHES["deps_join_dense_tk"] += 1
-    return out
+    return _launched("deps_join_dense_tk", rc, out)
 
 
 def max_conflict_tk(inc, ts, txn_id, active, query) -> torch.Tensor:
@@ -686,54 +673,63 @@ def max_conflict_tk(inc, ts, txn_id, active, query) -> torch.Tensor:
     rc = so.max_conflict_tk_launch(
         _ptr(inc), _ptr(query), _ptr(ts), _ptr(txn_id), _ptr(active), b, t, k,
         _ptr_or_null(scratch), _ptr(out), _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
-    return out
+    return _launched(name, rc, out)
+
+
+def _check_max(inc_T, ts, txn_id, active, offsets, cols, vals, out):
+    """K2's and K2d's checks: (B, T, K, the output to write)."""
+    b, t, k = _check_common(inc_T, txn_id, active, offsets, cols, vals=vals)
+    _check("ts", ts, torch.int32, (t, TS_LANES), inc_T.device)
+    return b, t, k, _output(out, (b, TS_LANES), torch.int32, inc_T.device)
 
 
 def max_conflict(inc_T, ts, txn_id, active, offsets, cols,
-                 form: str = "auto",
                  vals: Optional[torch.Tensor] = None,
                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K2: per query row, the lex max [B, 5] int32 of max(ts, txn_id) over
-    the active slots sharing a key (zero lanes when none), through the CSR
-    or the dense kernel (``form``, see ``join_form``); with ``vals`` the
-    signed overlap, CSR form only.  ``out``: as ``deps_join``'s."""
-    _check_form(form)
+    """K2, the CSR kernel: per query row, the lex max [B, 5] int32 of
+    max(ts, txn_id) over the active slots sharing a key (zero lanes when
+    none); with ``vals`` the signed overlap.  ``out``: as ``deps_join``'s."""
     if inc_T.device.type == "cpu":
         return _into(out, max_conflict_plain(inc_T, ts, txn_id, active,
                                              offsets, cols, vals))
-    b, t, k = _check_common(inc_T, txn_id, active, offsets, cols, vals=vals)
-    dev = inc_T.device
-    _check("ts", ts, torch.int32, (t, TS_LANES), dev)
-    dense = _choose(form, inc_T, b, cols.numel(), vals is not None) == "dense"
-    out = _output(out, (b, TS_LANES), torch.int32, dev)
+    b, t, k, out = _check_max(inc_T, ts, txn_id, active, offsets, cols, vals,
+                              out)
     if b == 0 or t == 0:
         return out.zero_()
-    so = lib()
-    name = "max_conflict_dense" if dense else "max_conflict"
-    head = (_ptr(inc_T), _ptr(ts), _ptr(txn_id), _ptr(active), _ptr(offsets),
-            _ptr(cols))
-    # the kernels write every row of out; scratch: the partials of a row
-    # that several blocks share (the CSR form's with their counters) and
-    # the dense form's query bytes
-    if dense:
-        scratch = _scratch(so.max_conflict_dense_scratch_ints(b, t, k), name,
-                           dev)
-        rc = so.max_conflict_dense_launch(*head, b, t, k, cols.numel(),
-                                          _ptr_or_null(scratch), _ptr(out),
-                                          _stream(dev))
-    else:
-        scratch = _scratch(so.max_conflict_scratch_ints(
-            b, t, int(vals is not None)), name, dev)
-        rc = so.max_conflict_launch(*head, _ptr_or_null(vals), b, t, k,
-                                    _ptr_or_null(scratch), _ptr(out),
-                                    _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
-    return out
+    so, dev = lib(), inc_T.device
+    # the kernel writes every row of out; scratch: the partials of a row
+    # that several blocks share, with their counters
+    scratch = _scratch(so.max_conflict_scratch_ints(
+        b, t, int(vals is not None)), "max_conflict", dev)
+    rc = so.max_conflict_launch(
+        _ptr(inc_T), _ptr(ts), _ptr(txn_id), _ptr(active), _ptr(offsets),
+        _ptr(cols), _ptr_or_null(vals), b, t, k, _ptr_or_null(scratch),
+        _ptr(out), _stream(dev))
+    return _launched("max_conflict", rc, out)
+
+
+def max_conflict_dense(inc_T, ts, txn_id, active, offsets, cols,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K2d, the dense kernel on the [K, T] index: ``max_conflict``'s answer
+    for 0/1 columns; raises as ``deps_join_dense`` does."""
+    if inc_T.device.type == "cpu":
+        return _into(out, max_conflict_plain(inc_T, ts, txn_id, active,
+                                             offsets, cols))
+    _check_dense(inc_T)
+    b, t, k, out = _check_max(inc_T, ts, txn_id, active, offsets, cols, None,
+                              out)
+    if b == 0 or t == 0:
+        return out.zero_()
+    so, dev = lib(), inc_T.device
+    # scratch: the partials of a row that several blocks share and the
+    # query bytes
+    scratch = _scratch(so.max_conflict_dense_scratch_ints(b, t, k),
+                       "max_conflict_dense", dev)
+    rc = so.max_conflict_dense_launch(
+        _ptr(inc_T), _ptr(ts), _ptr(txn_id), _ptr(active), _ptr(offsets),
+        _ptr(cols), b, t, k, cols.numel(), _ptr_or_null(scratch), _ptr(out),
+        _stream(dev))
+    return _launched("max_conflict_dense", rc, out)
 
 
 def fused_consult(live_T, key_T, ts, txn_id, kind, status, active, offsets,
@@ -745,23 +741,17 @@ def fused_consult(live_T, key_T, ts, txn_id, kind, status, active, offsets,
     buffer (``consult_out``)."""
     k, t = live_T.shape
     b = offsets.numel() - 1
-    if live_T.device.type == "cpu":
-        deps, max_lanes = consult_out(b, t, packed, live_T.device)
+    dev = live_T.device
+    if dev.type == "cpu":
+        deps, max_lanes = consult_out(b, t, packed, dev)
         got = fused_consult_plain(live_T, key_T, ts, txn_id, kind, status,
                                   active, offsets, cols, before, qkind, packed)
-        deps.copy_(got[0])
-        max_lanes.copy_(got[1])
-        return deps, max_lanes
+        return _into(deps, got[0]), _into(max_lanes, got[1])
     _check_common(live_T, txn_id, active, offsets, cols, before)
-    dev = live_T.device
     _check("key_T", key_T, torch.uint8, (k, t), dev)
     _check("ts", ts, torch.int32, (t, TS_LANES), dev)
-    _check("kind", kind, torch.int8, (t,), dev)
-    _check("status", status, torch.int8, (t,), dev)
-    _check("qkind", qkind, torch.int8, (b,), dev)
-    if packed and t % 8:
-        raise ValueError(f"bit-packed output needs T % 8 == 0, got T={t}")
     deps, max_lanes = consult_out(b, t, packed, dev)
+    _deps_out(deps, kind, status, qkind, b, t, packed, dev)
     if b == 0 or t == 0:
         max_lanes.zero_()
         return deps, max_lanes
@@ -776,10 +766,7 @@ def fused_consult(live_T, key_T, ts, txn_id, kind, status, active, offsets,
         _ptr(qkind), ctypes.c_ulonglong(_WIT_BITS), _WIT_NP.shape[0],
         INVALIDATED, b, t, k, int(bool(packed)), _ptr_or_null(scratch),
         _ptr(max_lanes), _ptr(deps), _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"fused_consult launch failed: CUDA error {rc}")
-    LAUNCHES["fused_consult"] += 1
-    return deps, max_lanes
+    return _launched("fused_consult", rc, (deps, max_lanes))
 
 
 # ---------------------------------------------------------------------------
@@ -874,10 +861,7 @@ def write_rows(state: GraphState, slots: torch.Tensor, valid: torch.Tensor,
         None if status is None else _ptr(state.status),
         0 if status is None else int(status), *pair("adj"),
         _ptr(state.active) if active else None, _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"write_rows launch failed: CUDA error {rc}")
-    LAUNCHES["write_rows"] += 1
-    return None
+    _launched("write_rows", rc, None)
 
 
 def frontier_rows_plain(adj: torch.Tensor, blocked: torch.Tensor,
@@ -909,7 +893,4 @@ def frontier_rows(adj: torch.Tensor, blocked: torch.Tensor,
     _check("ready", ready, torch.bool, (r,), dev)
     rc = lib().frontier_launch(_ptr(adj), _ptr(blocked), _ptr(ready), r, n,
                                _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"frontier launch failed: CUDA error {rc}")
-    LAUNCHES["frontier"] += 1
-    return ready
+    return _launched("frontier", rc, ready)

@@ -20,20 +20,18 @@ incidence, ``[*, 5]`` int32 timestamp lanes, ``[T, T]`` int8 adjacency.
 - ``scc_condense``      <- cycle handling (Commands.java:707-775).
 
 The incidences are the reference's int8 values (bool read as 0/1), and the
-key overlap is its test, the signed sum of the products > 0.  The join
-functions hand the ``[T, K]`` index and the ``[B, K]`` query as they lie
-to the dense kernels K1d/K2d on that layout (``_kernels.deps_join_tk`` /
-``max_conflict_tk``, csrc/dense_join_tk.cu) when
-``_kernels.join_form(..., layout="tk")`` says dense (K % 16 == 0 and
-aligned bases) or ``form="dense"`` forces it (a shape they refuse then
-raises); otherwise (or with ``form="csr"``) they convert to the ``[K, T]``
-wrappers' layout — the incidence transposed to ``[K, T]`` int8 bytes, the
-query to CSR with its values beside the columns, at a capacity fixed by
-its shape (``query_csr``: nothing read back) — and call the CSR kernels
-K1 (``_kernels.deps_join``) and/or K2 (``_kernels.max_conflict``,
+key overlap is its test, the signed sum of the products > 0.  Every join
+entry takes one route (``_consult``): the dense kernels on the ``[T, K]``
+index and the ``[B, K]`` query as they lie (``_kernels.deps_join_tk`` /
+``max_conflict_tk``, csrc/dense_join_tk.cu) unless ``_kernels.tk_refusal``
+refuses them (K % 16 != 0, or a base not 16-byte aligned); then the
+``[K, T]`` wrappers' layout — the incidence transposed to ``[K, T]`` int8
+bytes, the query to CSR with its values beside the columns, at a capacity
+fixed by its shape (``query_csr``: nothing read back) — and the CSR
+kernels K1 (``_kernels.deps_join``) and/or K2 (``_kernels.max_conflict``,
 csrc/consult.cu) with those values, which sum the signed products as the
-[T, K] kernels do.  On CPU tensors every
-wrapper runs its plain torch version.
+[T, K] kernels do.  On CPU tensors every wrapper runs its plain torch
+version.
 The graph functions are ``jax.jit`` code in the reference, not Pallas, so
 they are torch ops on the tensors' device, but for ``kahn_frontier``'s row
 test (``_kernels.frontier_rows``); their while loops are Python loops with
@@ -143,42 +141,42 @@ def _s8(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int8)
 
 
-def _tk_dense(form: str, *incidences: torch.Tensor) -> bool:
-    """Whether a call over these [T, K] incidences (the query last, as
-    ``_s8`` gives them) goes to the [T, K] kernels: by the rule for
-    "auto" (an index or query they cannot take goes to CSR), always for a
-    forced "dense" (which raises on such a one), never for "csr"."""
-    _kernels._check_form(form)
-    if form == "csr":
-        return False
-    t, k = incidences[0].shape
-    on_card = incidences[0].device.type == "cuda"
-    why = _kernels.tk_refusal(k, *(incidences if on_card else ()))
-    if form == "dense":
-        if why is not None:
-            raise ValueError(f"the [T, K] kernels take {why}")
-        return True
-    b = incidences[-1].shape[0]
-    return why is None and _kernels.join_form(b, t, k, layout="tk") == "dense"
-
-
-def _join(index_key_inc, index_txn_id, index_kind, index_status, index_active,
-          batch_key_inc, batch_before, batch_kind, packed=False, form="auto"):
-    inc, query = _s8(index_key_inc), _s8(batch_key_inc)
-    if _tk_dense(form, inc, query):
-        # the [T, K] route's one launch; the CSR route's syncs have spans
-        # of their own in ``query_csr``
-        with span("accord.kernel.join_tk"):
-            return _kernels.deps_join_tk(
-                inc, _i32(index_txn_id), _i8(index_kind), _i8(index_status),
-                _bool(index_active), query, _i32(batch_before),
-                _i8(batch_kind), packed=packed)
-    offsets, cols, vals = query_csr(query)
-    return _kernels.deps_join(
-        incidence_T(inc), _i32(index_txn_id), _i8(index_kind),
-        _i8(index_status), _bool(index_active), offsets, cols,
-        _i32(batch_before), _i8(batch_kind), packed=packed, form="csr",
-        vals=vals)
+def _consult(index_live_inc, index_key_inc, index_ts, index_txn_id,
+             index_kind, index_status, index_active, batch_key_inc,
+             batch_before, batch_kind, packed=False):
+    """The [T, K] route of every join entry: (deps, max_lanes), the deps
+    half over ``index_live_inc`` and the max half over ``index_key_inc``,
+    either one skipped (None) where its index is None.  The ``_tk`` kernels
+    take the index and the query as they lie unless ``tk_refusal`` refuses
+    them; then each index is transposed (``incidence_T``), the query turns
+    into one CSR query with values (``query_csr``) and K1/K2 run on those."""
+    live, key, query = (None if x is None else _s8(x) for x in (
+        index_live_inc, index_key_inc, batch_key_inc))
+    on_card = query.device.type == "cuda"
+    tk = _kernels.tk_refusal(query.shape[1], *(
+        x for x in (live, key, query) if on_card and x is not None)) is None
+    if not tk:
+        offsets, cols, vals = query_csr(query)
+    txn_id, active = _i32(index_txn_id), _bool(index_active)
+    deps = max_lanes = None
+    if live is not None:
+        slots = (txn_id, _i8(index_kind), _i8(index_status), active)
+        if tk:
+            # the [T, K] route's one launch (the span tells the routes apart)
+            with span("accord.kernel.join_tk"):
+                deps = _kernels.deps_join_tk(
+                    live, *slots, query, _i32(batch_before), _i8(batch_kind),
+                    packed=packed)
+        else:
+            deps = _kernels.deps_join(
+                incidence_T(live), *slots, offsets, cols, _i32(batch_before),
+                _i8(batch_kind), packed=packed, vals=vals)
+    if key is not None:
+        ts = _i32(index_ts)
+        max_lanes = _kernels.max_conflict_tk(key, ts, txn_id, active, query) \
+            if tk else _kernels.max_conflict(incidence_T(key), ts, txn_id,
+                                             active, offsets, cols, vals=vals)
+    return deps, max_lanes
 
 
 def overlap_join(index_key_inc: torch.Tensor,   # [T, K] int8 — in-flight txns
@@ -189,18 +187,16 @@ def overlap_join(index_key_inc: torch.Tensor,   # [T, K] int8 — in-flight txns
                  batch_key_inc: torch.Tensor,   # [B, K] int8 — new txns' keys
                  batch_before: torch.Tensor,    # [B, 5] int32 — started-before bound
                  batch_kind: torch.Tensor,      # [B] int8
-                 form: str = "auto",
                  ) -> torch.Tensor:
     """For each of B new transactions, the set of in-flight txns it must
     depend on: shares >=1 key, witness-matrix hit, active, not invalidated,
     and STARTED BEFORE the query bound (mapReduceActive's
-    TestStartedAt.STARTED_BEFORE, SafeCommandStore.java:65-72).  ``form``
-    picks K1's kernel (``_kernels.join_form`` with ``layout="tk"``).
+    TestStartedAt.STARTED_BEFORE, SafeCommandStore.java:65-72).
 
     Returns deps: [B, T] bool."""
-    return _join(index_key_inc, index_txn_id, index_kind, index_status,
-                 index_active, batch_key_inc, batch_before, batch_kind,
-                 form=form)
+    return _consult(index_key_inc, None, None, index_txn_id, index_kind,
+                    index_status, index_active, batch_key_inc, batch_before,
+                    batch_kind)[0]
 
 
 def max_conflict_keys(index_key_inc: torch.Tensor,  # [T, K] int8
@@ -208,44 +204,12 @@ def max_conflict_keys(index_key_inc: torch.Tensor,  # [T, K] int8
                       index_txn_id: torch.Tensor,   # [T, 5] int32
                       index_active: torch.Tensor,   # [T] bool
                       batch_key_inc: torch.Tensor,  # [B, K] int8
-                      form: str = "auto",
                       ) -> torch.Tensor:
     """Per query, the lexicographic max of max(executeAt, txnId) over every
     active indexed txn sharing a key.  Returns [B, 5] int32 (zero lanes =
     none)."""
-    inc, query = _s8(index_key_inc), _s8(batch_key_inc)
-    if _tk_dense(form, inc, query):
-        return _kernels.max_conflict_tk(inc, _i32(index_ts),
-                                        _i32(index_txn_id),
-                                        _bool(index_active), query)
-    offsets, cols, vals = query_csr(query)
-    return _kernels.max_conflict(
-        incidence_T(inc), _i32(index_ts), _i32(index_txn_id),
-        _bool(index_active), offsets, cols, form="csr", vals=vals)
-
-
-def _consult(index_live_inc, index_key_inc, index_ts, index_txn_id,
-             index_kind, index_status, index_active, batch_key_inc,
-             batch_before, batch_kind, packed, form):
-    live, key, query = (_s8(x) for x in (index_live_inc, index_key_inc,
-                                         batch_key_inc))
-    if _tk_dense(form, live, key, query):
-        txn_id, active = _i32(index_txn_id), _bool(index_active)
-        deps = _kernels.deps_join_tk(
-            live, txn_id, _i8(index_kind), _i8(index_status), active, query,
-            _i32(batch_before), _i8(batch_kind), packed=packed)
-        return deps, _kernels.max_conflict_tk(key, _i32(index_ts), txn_id,
-                                              active, query)
-    offsets, cols, vals = query_csr(query)
-    deps = _kernels.deps_join(
-        incidence_T(live), _i32(index_txn_id), _i8(index_kind),
-        _i8(index_status), _bool(index_active), offsets, cols,
-        _i32(batch_before), _i8(batch_kind), packed=packed, form="csr",
-        vals=vals)
-    max_lanes = _kernels.max_conflict(
-        incidence_T(key), _i32(index_ts), _i32(index_txn_id),
-        _bool(index_active), offsets, cols, form="csr", vals=vals)
-    return deps, max_lanes
+    return _consult(None, index_key_inc, index_ts, index_txn_id, None, None,
+                    index_active, batch_key_inc, None, None)[1]
 
 
 def consult(index_live_inc: torch.Tensor,  # [T, K] int8 — covered bits zeroed
@@ -258,18 +222,16 @@ def consult(index_live_inc: torch.Tensor,  # [T, K] int8 — covered bits zeroed
             batch_key_inc: torch.Tensor,   # [B, K] int8
             batch_before: torch.Tensor,    # [B, 5] int32
             batch_kind: torch.Tensor,      # [B] int8
-            form: str = "auto",
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The fused replica consult: the dependency calculation over the LIVE
     incidence (covered bits implement cfk transitive elision,
     CommandsForKey.java:144-157) and the timestamp-proposal max over the
-    FULL incidence (elision never applies to MaxConflicts).  ``form`` picks
-    K1's and K2's kernels (``_kernels.join_form``).
+    FULL incidence (elision never applies to MaxConflicts).
 
     Returns (deps [B, T] bool, max_lanes [B, 5] int32)."""
     return _consult(index_live_inc, index_key_inc, index_ts, index_txn_id,
                     index_kind, index_status, index_active, batch_key_inc,
-                    batch_before, batch_kind, packed=False, form=form)
+                    batch_before, batch_kind)
 
 
 def consult_packed(index_live_inc: torch.Tensor, index_key_inc: torch.Tensor,
@@ -277,7 +239,6 @@ def consult_packed(index_live_inc: torch.Tensor, index_key_inc: torch.Tensor,
                    index_kind: torch.Tensor, index_status: torch.Tensor,
                    index_active: torch.Tensor, batch_key_inc: torch.Tensor,
                    batch_before: torch.Tensor, batch_kind: torch.Tensor,
-                   form: str = "auto",
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``consult`` with the deps mask BIT-PACKED ([B, T/8] uint8,
     little-endian bit order, T a multiple of 8): the [B, T] bool result is
@@ -285,7 +246,7 @@ def consult_packed(index_live_inc: torch.Tensor, index_key_inc: torch.Tensor,
     crosses back to the host.  Hosts unpack with np.unpackbits."""
     return _consult(index_live_inc, index_key_inc, index_ts, index_txn_id,
                     index_kind, index_status, index_active, batch_key_inc,
-                    batch_before, batch_kind, packed=True, form=form)
+                    batch_before, batch_kind, packed=True)
 
 
 def max_conflict_ts(index_exec_at: torch.Tensor,  # [T, 5] int32

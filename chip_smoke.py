@@ -30,10 +30,10 @@ Phases, one JSON line each; any failure exits non-zero:
             counted: config 4 and the wide row on K1d/K2d in the service,
             the rest one K12 launch each (the dense form refuses the cases
             with T % 16 != 0, checked), every case on the [T, K] kernels one-shot (K =
-            72 and a misaligned query go to CSR and a forced dense raises,
-            checked); at shape A, config 4 and the wide row the one-shot
-            consult's transpose route (transposes, CSR query, [K, T]
-            kernels by join_form) and its [T, K] route timed in turns, with
+            72 and a misaligned query go to CSR and the [T, K] wrappers
+            raise, checked); at shape A, config 4 and the wide row the
+            one-shot consult's transpose route (transposes, CSR query, K1
+            and K2 with values) and its [T, K] route timed in turns, with
             the transpose route's parts and the [T, K] route in a CUDA
             graph; the sweep of both forms in
             turns over row widths at config 4's and the wide row's index,
@@ -41,7 +41,7 @@ Phases, one JSON line each; any failure exits non-zero:
             16-, 64- and 256-key indexes (the crossovers join_form is set
             from), and the one-shot consult's sweep of the CSR route
             against the [T, K] kernels at the kernel tables' shapes (the
-            layout="tk" rule's); device time per launch
+            tk_refusal rule's); device time per launch
             from a CUDA graph of back-to-back launches between one event
             pair (cold and warm L2), the wrapper's host cost apart, beside
             the plain version, one torch.matmul of the same join and the
@@ -208,8 +208,8 @@ TK_KERNELS = ("deps_join_dense_tk", "max_conflict_dense_tk")
 STEP_KERNELS = ("write_rows", "frontier")
 # the wrappers the recorders hold: the [K, T] ones (a form each), the
 # [T, K] ones and K12; their plain versions are ``<name>_plain``
-WRAPPERS = ("deps_join", "max_conflict", "deps_join_tk", "max_conflict_tk",
-            FUSED)
+WRAPPERS = ("deps_join", "max_conflict", "deps_join_dense",
+            "max_conflict_dense", "deps_join_tk", "max_conflict_tk", FUSED)
 # BASELINE.md config 4 (range transactions of 1,000 keys): the kernels
 # phase's case whose consult is the dense kernels' path
 CONFIG4 = "config4_T65536_K2048_B64_1024keys"
@@ -217,11 +217,18 @@ FORMS = ("csr", "dense")
 
 
 def kernel_name(base, form) -> str:
-    """The launch counter (and kernels-line entry) of wrapper ``base`` in
-    ``form`` (the [T, K] wrappers have one kernel each)."""
+    """The launch counter (and kernels-line entry) of K1 or K2 ``base`` in
+    ``form``, which is also the name of its [K, T] wrapper (the [T, K]
+    wrappers have one kernel each)."""
     if base.endswith("_tk"):
         return base[:-3] + "_dense_tk"
     return f"{base}_dense" if form == "dense" else base
+
+
+def base_name(name) -> str:
+    """The kernel a wrapper serves: ``deps_join`` or ``max_conflict`` for
+    either [K, T] wrapper (the dense one runs the same plain version)."""
+    return name[:-len("_dense")] if name.endswith("_dense") else name
 
 
 def k1_launches(launches) -> int:
@@ -246,7 +253,7 @@ def call_shape(name, args):
     if name.endswith("_tk"):
         query = args[5] if name == "deps_join_tk" else args[4]
         return query.shape[0], args[0].shape[0], args[0].shape[1]
-    offsets = args[5] if name == "deps_join" else args[4]
+    offsets = args[5] if base_name(name) == "deps_join" else args[4]
     return offsets.numel() - 1, args[0].shape[1], args[0].shape[0]
 
 
@@ -511,13 +518,13 @@ class KernelRecorder:
         self.check_s = 0.0
 
     def k1_calls(self) -> int:
-        return (self.calls["deps_join"] + self.calls["deps_join_tk"]
-                + self.calls[FUSED])
+        return (self.calls["deps_join"] + self.calls["deps_join_dense"]
+                + self.calls["deps_join_tk"] + self.calls[FUSED])
 
     def _check(self, name, args, kwargs, got):
         t0 = time.perf_counter()
-        kwargs = {k: v for k, v in kwargs.items() if k not in ("form", "out")}
-        want = getattr(self.k, f"{name}_plain")(*args, **kwargs)
+        kwargs = {k: v for k, v in kwargs.items() if k != "out"}
+        want = getattr(self.k, f"{base_name(name)}_plain")(*args, **kwargs)
         b, t, k = call_shape(name, args)
         need(max_abs_err(self.torch, got, want) == 0,
              f"{name} differs from its plain version at B={b} T={t} K={k}")
@@ -533,8 +540,9 @@ class KernelRecorder:
                 self._check(name, args, kwargs, got)
             self.calls[name] += 1
             b, t, _k = call_shape(name, args)
-            if b * t >= self.largest.get(name, (-1,))[0]:
-                self.largest[name] = (b * t, args, kwargs)
+            key = base_name(name)     # timed later in both [K, T] forms
+            if b * t >= self.largest.get(key, (-1,))[0]:
+                self.largest[key] = (b * t, args, kwargs)
             return got
         return call
 
@@ -701,7 +709,7 @@ def _kernel_case(ctx, label, t, k, b, keys_per_txn, iters, packed=(False, True),
     need(torch.equal(d1, deps) and torch.equal(m1, cmax),
          f"[{label}] the one-shot consult differs from the service's")
     want = ({n: int(n in TK_KERNELS) for n in K.LAUNCHES}
-            if K.join_form(b, t, k, layout="tk") == "dense" else None)
+            if K.tk_refusal(k) is None else None)
     need(want is None or launches == want,
          f"[{label}] the one-shot consult launched {launches}")
     ctx.setdefault("oneshot_launches", {})[label] = launches
@@ -721,10 +729,24 @@ def transpose_consult(*args, packed=False):
     live, key, ts, txn_id, kind, status, active, q, before, qkind = args
     offsets, cols, vals = dk.query_csr(q)
     deps = K.deps_join(dk.incidence_T(live), txn_id, kind, status, active,
-                       offsets, cols, before, qkind, packed=packed,
-                       form="csr", vals=vals)
+                       offsets, cols, before, qkind, packed=packed, vals=vals)
     return deps, K.max_conflict(dk.incidence_T(key), ts, txn_id, active,
-                                offsets, cols, form="csr", vals=vals)
+                                offsets, cols, vals=vals)
+
+
+def tk_consult(*args, packed=False):
+    """The one-shot consult's [T, K] route: K1d and K2d on the [T, K]
+    index and the dense query as they lie (they raise where they refuse)."""
+    from cassandra_accord_tpu_torch.ops import _kernels as K
+    live, key, ts, txn_id, kind, status, active, q, before, qkind = args
+    return (K.deps_join_tk(live, txn_id, kind, status, active, q, before,
+                           qkind, packed=packed),
+            K.max_conflict_tk(key, ts, txn_id, active, q))
+
+
+# the one-shot consult's two routes, by the name of the [K, T] form each
+# stands beside in the sweeps
+ONESHOT_ROUTES = {"csr": transpose_consult, "dense": tk_consult}
 
 
 def _oneshot_split(ctx, args, want):
@@ -789,7 +811,7 @@ def _dense_refused(ctx, label, jargs, margs):
     before = dict(K.LAUNCHES)
     for name, args in (("deps_join", jargs), ("max_conflict", margs)):
         try:
-            ctx["real"][name](*args, form="dense")
+            ctx["real"][kernel_name(name, "dense")](*args)
         except ValueError:
             continue
         need(False, f"[{label}] {name} forced dense did not raise")
@@ -817,18 +839,18 @@ def measure(ctx, name, label, args, kwargs, iters, path="synthetic",
     graph replayed once more), then kernel (cold and warm L2), plain and
     library times, the wrapper's host cost and the bound.  ``path`` says
     where the shape came from; ``form`` "auto" is the form join_form picks
-    for it, and the row is named by the kernel."""
+    for it, and the row is named by the kernel (the [K, T] form's wrapper's
+    name)."""
     torch = ctx["torch"]
     from cassandra_accord_tpu_torch.ops import _kernels as K
     if name == FUSED:
         return measure_fused(ctx, label, args, kwargs, iters, path)
-    kwargs = {k: v for k, v in kwargs.items() if k not in ("form", "out")}
-    real = ctx["real"][name]
+    kwargs = {k: v for k, v in kwargs.items() if k != "out"}
     b, t, k = call_shape(name, args)
     packed = kwargs.get("packed", False)
     if name.endswith("_tk"):
         inc, query = args[0], args[5 if name == "deps_join_tk" else 4]
-        kern = real
+        kern = ctx["real"][name]
         qf, incf = query.float(), inc.float().t()
         bound = join_bound_tk(torch, name, inc, query, packed=packed)
         nnz = int((query != 0).sum())
@@ -838,9 +860,7 @@ def measure(ctx, name, label, args, kwargs, iters, path="synthetic",
         cols = args[6] if name == "deps_join" else args[5]
         if form == "auto":
             form = K.join_form(b, t, k, cols.numel())
-
-        def kern(*a, **kw):
-            return real(*a, form=form, **kw)
+        kern = ctx["real"][kernel_name(name, form)]
         qf, incf = K.dense_query(offsets, cols, k).float(), inc_T.float()
         bound = join_bound(torch, name, inc_T, offsets, cols, packed=packed)
         nnz = int(offsets[-1])
@@ -892,9 +912,9 @@ def _fused_halves(ctx, args, packed=False):
         qkind = args
     return (ctx["real"]["deps_join"](live_T, txn_id, kind, status, active,
                                      offsets, cols, before, qkind,
-                                     packed=packed, form="csr"),
+                                     packed=packed),
             ctx["real"]["max_conflict"](key_T, ts, txn_id, active, offsets,
-                                        cols, form="csr"))
+                                        cols))
 
 
 def measure_fused(ctx, label, args, kwargs, iters, path="synthetic"):
@@ -907,7 +927,7 @@ def measure_fused(ctx, label, args, kwargs, iters, path="synthetic"):
     cost and the bound."""
     torch = ctx["torch"]
     from cassandra_accord_tpu_torch.ops import _kernels as K
-    kwargs = {k: v for k, v in kwargs.items() if k not in ("form", "out")}
+    kwargs = {k: v for k, v in kwargs.items() if k != "out"}
     packed = kwargs.get("packed", False)
     real = ctx["real"][FUSED]
     b, t, k = call_shape(FUSED, args)
@@ -1009,9 +1029,10 @@ def phase_kernels(ctx):
 
 def _tk_refused(ctx):
     """K = 72 (not a multiple of 16) and a misaligned query: the [T, K]
-    kernels refuse both, so a forced ``form="dense"`` raises and launches
-    nothing, and ``form="auto"`` takes the CSR route (transposes, CSR
-    query, the [K, T] wrappers), equal to the plain versions."""
+    kernels refuse both, so their wrappers (``tk_consult``) raise and
+    launch nothing, and the one-shot consult takes the CSR route
+    (transposes, CSR query, the [K, T] wrappers), equal to the plain
+    versions."""
     import numpy as np
     torch = ctx["torch"]
     from cassandra_accord_tpu_torch.ops import _kernels as K
@@ -1034,11 +1055,11 @@ def _tk_refused(ctx):
                 up(status), up(active), qd, up(before), up(qkind))
         before_l = dict(K.LAUNCHES)
         try:
-            dk.consult(*args, form="dense")
+            tk_consult(*args)
         except ValueError:
             pass
         else:
-            need(False, f"[{label}] a forced dense consult did not raise")
+            need(False, f"[{label}] the [T, K] kernels did not refuse")
         need(K.LAUNCHES == before_l, f"[{label}] a refused call launched")
         K.reset_launches()
         got = dk.consult(*args)
@@ -1055,8 +1076,8 @@ def _tk_refused(ctx):
     return out
 
 
-# The rule's sweep for [T, K] callers (PERF.md §6 sets join_form's
-# layout="tk" rule from it): the one-shot consult (``ops.deps_kernels.
+# The rule's sweep for [T, K] callers (PERF.md sets their rule,
+# ``tk_refusal``, from it): the one-shot consult (``ops.deps_kernels.
 # consult``, both halves) at the shapes of PERF.md's kernel tables, by the
 # CSR route (the index transposed, the query to CSR with its size read
 # back, the [K, T] CSR kernels) and by the [T, K] kernels, in turns (CSR,
@@ -1107,18 +1128,18 @@ def _consult_sweep(ctx):
             return torch.from_numpy(np.ascontiguousarray(a)).to(ctx["dev"])
         args = (up(key_inc), up(key_inc), up(ts), up(lanes), up(kind),
                 up(status), up(active), up(q), up(before), up(qkind))
-        want = dk.consult(*args, form="csr")
-        got = dk.consult(*args, form="dense")
+        want = transpose_consult(*args)
+        got = tk_consult(*args)
         sync(ctx)
         need(all(torch.equal(a, w) for a, w in zip(got, want)),
              f"consult sweep [{label}]: the forms differ")
         ms = {"csr": [], "dense": []}
         for form in ("csr", "dense", "dense", "csr"):
             ms[form].append(eager_ms(
-                torch, lambda f=form: dk.consult(*args, form=f),
+                torch, lambda f=form: ONESHOT_ROUTES[f](*args),
                 CONSULT_SWEEP["reps"], ctx["flush"]))
         out.append({"shape": label, "B": b, "T": t, "K": k,
-                    "rule": K.join_form(b, t, k, layout="tk"),
+                    "rule": "dense" if K.tk_refusal(k) is None else "csr",
                     "csr_ms": ms["csr"], "dense_ms": ms["dense"],
                     "faster": min(ms, key=lambda f: min(ms[f]))})
         del args
@@ -1168,10 +1189,9 @@ def _sweep_point(ctx, label, key_T, g, rows):
     need(max_abs_err(torch, got, K.fused_consult_plain(*fargs)) == 0,
          f"sweep [{label}] K12 differs from its plain version")
     for name, (args, plain) in calls.items():
-        real = ctx["real"][name]
         want = plain(*args)
         for form in FORMS:
-            got = real(*args, form=form)
+            got = ctx["real"][kernel_name(name, form)](*args)
             sync(ctx)
             need(torch.equal(got, want),
                  f"sweep [{label}] {name} ({form}) differs from its plain "
@@ -1179,8 +1199,8 @@ def _sweep_point(ctx, label, key_T, g, rows):
         ms = {form: [] for form in FORMS}
         for form in ("csr", "dense", "dense", "csr"):
             ms[form].append(device_ms(
-                torch, lambda f=form: real(*args, form=f), SWEEP["iters"],
-                ctx["flush"]))
+                torch, lambda f=form: ctx["real"][kernel_name(name, f)](*args),
+                SWEEP["iters"], ctx["flush"]))
         best = min(FORMS, key=lambda f: min(ms[f]))
         out[name] = {"csr_ms": ms["csr"], "dense_ms": ms["dense"],
                      "faster": best}
@@ -1277,10 +1297,11 @@ def _kernel_columns(ctx):
              up(active), up(offsets), up(cols))
     errs = {}
     for form in FORMS:
-        got = {"deps_join": ctx["real"]["deps_join"](*jargs, form=form),
-               "deps_join_packed": ctx["real"]["deps_join"](
-                   *jargs, packed=True, form=form),
-               "max_conflict": ctx["real"]["max_conflict"](*margs, form=form)}
+        k1 = ctx["real"][kernel_name("deps_join", form)]
+        got = {"deps_join": k1(*jargs),
+               "deps_join_packed": k1(*jargs, packed=True),
+               "max_conflict": ctx["real"][kernel_name("max_conflict", form)](
+                   *margs)}
         want = {"deps_join": K.deps_join_plain(*jargs),
                 "deps_join_packed": K.deps_join_plain(*jargs, packed=True),
                 "max_conflict": K.max_conflict_plain(*margs)}
@@ -1369,12 +1390,12 @@ def _kt_edges(ctx):
                      up(active), up(offsets), up(cols))
             errs = {}
             for pk in (False, True):
-                got = ctx["real"]["deps_join"](*jargs, packed=pk, form="dense")
+                got = ctx["real"]["deps_join_dense"](*jargs, packed=pk)
                 want = K.deps_join_plain(*jargs, packed=pk)
                 errs[f"K1d{'_packed' if pk else ''}"] = max_abs_err(
                     torch, got, want)
             errs["K2d"] = max_abs_err(
-                torch, ctx["real"]["max_conflict"](*margs, form="dense"),
+                torch, ctx["real"]["max_conflict_dense"](*margs),
                 K.max_conflict_plain(*margs))
             sync(ctx)
             name = f"{label}{'_odd_kinds' if odd else ''}"
@@ -1417,8 +1438,8 @@ def _parity(ctx):
              up(status), up(active), up(offsets), up(cols), up(before),
              up(qkind))
     want = K.deps_join_plain(*jargs)
-    kinds = {form: max_abs_err(torch, ctx["real"]["deps_join"](
-        *jargs, form=form), want) for form in FORMS}
+    kinds = {form: max_abs_err(torch, ctx["real"][kernel_name(
+        "deps_join", form)](*jargs), want) for form in FORMS}
     kinds["tk"] = max_abs_err(torch, ctx["real"]["deps_join_tk"](
         up(live), up(lanes), up(kind), up(status), up(active), up(q),
         up(before), up(qkind)), want)
@@ -2271,8 +2292,7 @@ class JoinCheck:
 
     def verify(self):
         for name, args, kwargs, got in self.pending:
-            want = getattr(self.k, f"{name}_plain")(
-                *args, **{k: v for k, v in kwargs.items() if k != "form"})
+            want = getattr(self.k, f"{name}_plain")(*args, **kwargs)
             need(self.torch.equal(got, want),
                  f"{name} differs from its plain version on the graph path")
             self.checked += 1

@@ -111,12 +111,12 @@ def test_deps_join_and_max_conflict_equal_plain(cuda, case):
     g = _inputs(np.random.default_rng(t), t, k, b, cuda, **kw)
     args, margs = _args(g)
     before = dict(_kernels.LAUNCHES)
-    assert torch.equal(_kernels.deps_join(*args, form="csr"),
+    assert torch.equal(_kernels.deps_join(*args),
                        _kernels.deps_join_plain(*args))
     if t % 8 == 0:
-        assert torch.equal(_kernels.deps_join(*args, packed=True, form="csr"),
+        assert torch.equal(_kernels.deps_join(*args, packed=True),
                            _kernels.deps_join_plain(*args, packed=True))
-    assert torch.equal(_kernels.max_conflict(*margs, form="csr"),
+    assert torch.equal(_kernels.max_conflict(*margs),
                        _kernels.max_conflict_plain(*margs))
     torch.cuda.synchronize()
     assert _kernels.LAUNCHES["deps_join"] > before["deps_join"]
@@ -135,22 +135,22 @@ def test_dense_form_equals_plain_and_csr(cuda, case):
     if t % 16:
         before = dict(_kernels.LAUNCHES)
         with pytest.raises(ValueError):
-            _kernels.deps_join(*args, form="dense")
+            _kernels.deps_join_dense(*args)
         with pytest.raises(ValueError):
-            _kernels.max_conflict(*margs, form="dense")
+            _kernels.max_conflict_dense(*margs)
         assert _kernels.LAUNCHES == before
         assert _kernels.join_form(b, t, k, 10 ** 9) == "csr"
         return
     packs = (False, True) if t % 8 == 0 else (False,)
-    csr = [_kernels.deps_join(*args, packed=pk, form="csr") for pk in packs]
-    csr_max = _kernels.max_conflict(*margs, form="csr")
+    csr = [_kernels.deps_join(*args, packed=pk) for pk in packs]
+    csr_max = _kernels.max_conflict(*margs)
     torch.cuda.synchronize()
     before = dict(_kernels.LAUNCHES)
     for pk, want in zip(packs, csr):
-        got = _kernels.deps_join(*args, packed=pk, form="dense")
+        got = _kernels.deps_join_dense(*args, packed=pk)
         assert torch.equal(got, _kernels.deps_join_plain(*args, packed=pk))
         assert torch.equal(got, want)
-    got = _kernels.max_conflict(*margs, form="dense")
+    got = _kernels.max_conflict_dense(*margs)
     assert torch.equal(got, _kernels.max_conflict_plain(*margs))
     assert torch.equal(got, csr_max)
     torch.cuda.synchronize()
@@ -163,23 +163,27 @@ def test_dense_form_equals_plain_and_csr(cuda, case):
 
 @pytest.mark.parametrize("width", [3, 128])
 def test_auto_form_follows_join_form(cuda, width):
-    """form="auto" launches the kernel join_form names for the call's sizes
-    (narrow rows: CSR; rows of ~64 keys at T = 8,192: dense), counted under
-    its name, with the plain version's answer."""
+    """The window (``ragged_consult_t``) launches the kernels join_form
+    names for the call's sizes (narrow rows: CSR, K12; rows of ~64 keys at
+    T = 8,192: dense, K1d and K2d), counted under their names, with the
+    plain versions' answers."""
     t, k, b = 8192, 256, 64
     g = _inputs(np.random.default_rng(width), t, k, b, cuda, width=width)
     args, margs = _args(g)
     form = _kernels.join_form(b, t, k, g["cols"].numel())
-    suffix = "_dense" if form == "dense" else ""
+    assert form == ("csr" if width == 3 else "dense")
+    names = ({"fused_consult": 1} if form == "csr"
+             else {"deps_join_dense": 1, "max_conflict_dense": 1})
     before = dict(_kernels.LAUNCHES)
-    assert torch.equal(_kernels.deps_join(*args),
-                       _kernels.deps_join_plain(*args))
-    assert torch.equal(_kernels.max_conflict(*margs),
-                       _kernels.max_conflict_plain(*margs))
+    deps, lanes = ragged_consult_t(g["inc"], g["inc"], g["ts"], g["txn_id"],
+                                   g["kind"], g["status"], g["active"],
+                                   g["cols"], g["offsets"], g["before"],
+                                   g["qkind"])
+    assert torch.equal(deps, _kernels.deps_join_plain(*args))
+    assert torch.equal(lanes, _kernels.max_conflict_plain(*margs))
     torch.cuda.synchronize()
-    for name in ("deps_join", "max_conflict"):
-        assert _kernels.LAUNCHES[name + suffix] == before[name + suffix] + 1
-    assert sum(_kernels.LAUNCHES.values()) == sum(before.values()) + 2
+    assert {n: v - before[n] for n, v in _kernels.LAUNCHES.items()
+            if v != before[n]} == names
 
 
 def test_dense_form_needs_k_within_its_tile(cuda):
@@ -187,9 +191,9 @@ def test_dense_form_needs_k_within_its_tile(cuda):
                 cuda)
     args, margs = _args(g)
     with pytest.raises(ValueError):
-        _kernels.deps_join(*args, form="dense")
+        _kernels.deps_join_dense(*args)
     with pytest.raises(ValueError):
-        _kernels.max_conflict(*margs, form="dense")
+        _kernels.max_conflict_dense(*margs)
     assert _kernels.join_form(4, 65536, _kernels.DENSE_MAX_K + 1,
                               10 ** 9) == "csr"
 
@@ -206,13 +210,13 @@ def test_dense_form_needs_an_aligned_index(cuda):
     assert shifted.data_ptr() % 16 != 0
     before = dict(_kernels.LAUNCHES)
     with pytest.raises(ValueError):
-        _kernels.deps_join(shifted, *args[1:], form="dense")
+        _kernels.deps_join_dense(shifted, *args[1:])
     with pytest.raises(ValueError):
-        _kernels.max_conflict(shifted, *margs[1:], form="dense")
+        _kernels.max_conflict_dense(shifted, *margs[1:])
     assert _kernels.LAUNCHES == before
-    assert torch.equal(_kernels.deps_join(shifted, *args[1:], form="csr"),
+    assert torch.equal(_kernels.deps_join(shifted, *args[1:]),
                        _kernels.deps_join_plain(*args))
-    assert torch.equal(_kernels.max_conflict(shifted, *margs[1:], form="csr"),
+    assert torch.equal(_kernels.max_conflict(shifted, *margs[1:]),
                        _kernels.max_conflict_plain(*margs))
 
 
@@ -273,7 +277,8 @@ def test_negative_and_out_of_range_slots_on_card_equal_cpu(cuda, case):
 
 @pytest.mark.parametrize("form", ["csr", "dense"])
 def test_graph_replays_equal_plain(cuda, form):
-    """K1 and K2 in either form, one block per row group and several,
+    """K1 and K2 in either form (K1d and K2d for "dense"), one block per
+    row group and several,
     captured in one CUDA graph: every replay's answers equal the plain
     versions, with the outputs overwritten before each replay (a fold
     counter left over from an earlier replay would leave K2's output
@@ -282,13 +287,14 @@ def test_graph_replays_equal_plain(cuda, form):
                           width=3 if form == "csr" else 32))
             for t in ((120, 256, 6147) if form == "csr"
                       else (112, 256, 6160))]
+    k1, k2 = ((_kernels.deps_join, _kernels.max_conflict) if form == "csr"
+              else (_kernels.deps_join_dense, _kernels.max_conflict_dense))
     want = [(_kernels.deps_join_plain(*a), _kernels.max_conflict_plain(*m))
             for a, m in sets]
     got = []
 
     def body():
-        got[:] = [(_kernels.deps_join(*a, form=form),
-                   _kernels.max_conflict(*m, form=form)) for a, m in sets]
+        got[:] = [(k1(*a), k2(*m)) for a, m in sets]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -355,7 +361,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 def test_txn_step_on_card_equals_cpu(cuda):
     """The entry point's step, three batches and a gc step, on the card and
     on the CPU: equal deps, applied masks and final state; one K1 launch per
-    step on the card, on the kernel join_form picks (layout="tk")."""
+    step on the card, on the kernel the [T, K] rule (tk_refusal) picks."""
     fn, (st, bt) = entry(device=cuda)
     _, (st_c, bt_c) = entry(device="cpu")
     k1 = ("deps_join", "deps_join_dense", "deps_join_dense_tk")
@@ -578,11 +584,10 @@ def test_tk_kernels_equal_plain_and_kt_path(cuda, case):
     for pk in packs:
         got = _kernels.deps_join_tk(*tj, packed=pk)
         assert torch.equal(got, _kernels.deps_join_tk_plain(*tj, packed=pk))
-        assert torch.equal(got, _kernels.deps_join(*kj, packed=pk,
-                                                   form="csr"))
+        assert torch.equal(got, _kernels.deps_join(*kj, packed=pk))
     got = _kernels.max_conflict_tk(*tm)
     assert torch.equal(got, _kernels.max_conflict_tk_plain(*tm))
-    assert torch.equal(got, _kernels.max_conflict(*km, form="csr"))
+    assert torch.equal(got, _kernels.max_conflict(*km))
     torch.cuda.synchronize()
     after = dict(_kernels.LAUNCHES)
     assert after["deps_join_dense_tk"] == before["deps_join_dense_tk"] + len(packs)
@@ -591,8 +596,8 @@ def test_tk_kernels_equal_plain_and_kt_path(cuda, case):
 
 def test_tk_kernels_refuse_what_their_tensor_maps_cannot_take(cuda):
     """K % 16 != 0 and a query one byte off 16-byte alignment: the [T, K]
-    wrappers raise and launch nothing; the one-shot consult forced dense
-    raises, and by the rule takes the CSR route with the plain answer."""
+    wrappers raise and launch nothing; the one-shot consult by the rule
+    takes the CSR route with the plain answer."""
     g, tj, tm = _tk_inputs(256, 72, 8, 4, 0, cuda, seed=72)
     before = dict(_kernels.LAUNCHES)
     with pytest.raises(ValueError):
@@ -608,8 +613,7 @@ def test_tk_kernels_refuse_what_their_tensor_maps_cannot_take(cuda):
     assert _kernels.LAUNCHES == before
     args = (g["live"], g["inc"], g["ts"], g["txn_id"], g["kind"],
             g["status"], g["active"], g["q"], g["before"], g["qkind"])
-    with pytest.raises(ValueError):
-        dk.consult(*args, form="dense")
+    assert _kernels.tk_refusal(72) is not None
     got = dk.consult(*args)
     want = dk.consult(*(a.cpu() for a in args))
     for a, w in zip(got, want):
@@ -625,7 +629,7 @@ def test_one_shot_consult_captures_in_a_cuda_graph(cuda):
     g, _tj, _tm = _tk_inputs(t, k, b, 1024, 0, cuda, seed=4)
     args = (g["live"], g["inc"], g["ts"], g["txn_id"], g["kind"],
             g["status"], g["active"], g["q"], g["before"], g["qkind"])
-    assert _kernels.join_form(b, t, k, layout="tk") == "dense"
+    assert _kernels.tk_refusal(k) is None
     eager = dk.consult_packed(*args)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -694,11 +698,10 @@ def test_kt_dense_at_the_edge_shapes(cuda, case, odd):
     args, margs = _args(g)
     before = dict(_kernels.LAUNCHES)
     for pk in (False, True):
-        got = _kernels.deps_join(*args, packed=pk, form="dense")
+        got = _kernels.deps_join_dense(*args, packed=pk)
         assert torch.equal(got, _kernels.deps_join_plain(*args, packed=pk))
-        assert torch.equal(got, _kernels.deps_join(*args, packed=pk,
-                                                   form="csr"))
-    got = _kernels.max_conflict(*margs, form="dense")
+        assert torch.equal(got, _kernels.deps_join(*args, packed=pk))
+    got = _kernels.max_conflict_dense(*margs)
     assert torch.equal(got, _kernels.max_conflict_plain(*margs))
     torch.cuda.synchronize()
     after = dict(_kernels.LAUNCHES)
@@ -757,8 +760,6 @@ def test_csr_kernels_with_signed_values_equal_plain(cuda, t):
                                                          vals=vals))
     got = _kernels.max_conflict(*km, vals=vals)
     assert torch.equal(got, _kernels.max_conflict_plain(*km, vals=vals))
-    with pytest.raises(ValueError):
-        _kernels.max_conflict(*km, form="dense", vals=vals)
     args = (g["live"], g["inc"], g["ts"], g["txn_id"], g["kind"],
             g["status"], g["active"], g["q"], g["before"], g["qkind"])
     before = dict(_kernels.LAUNCHES)
@@ -779,8 +780,8 @@ def test_negative_kinds_in_every_k1_form_equal_plain(cuda):
     _odd_kinds(g, rng)
     args, _margs = _args(g)
     want = _kernels.deps_join_plain(*args)
-    for form in ("csr", "dense"):
-        assert torch.equal(_kernels.deps_join(*args, form=form), want)
+    for k1 in (_kernels.deps_join, _kernels.deps_join_dense):
+        assert torch.equal(k1(*args), want)
     q = _kernels.dense_query(g["offsets"], g["cols"], k).clamp(max=1) \
         .to(torch.int8)
     inc = g["inc"].t().contiguous().view(torch.int8)
@@ -807,9 +808,8 @@ def _fused_halves(args, packed):
     live_T, key_T, ts, txn_id, kind, status, active, offsets, cols, before, \
         qkind = args
     return (_kernels.deps_join(live_T, txn_id, kind, status, active, offsets,
-                               cols, before, qkind, packed=packed, form="csr"),
-            _kernels.max_conflict(key_T, ts, txn_id, active, offsets, cols,
-                                  form="csr"))
+                               cols, before, qkind, packed=packed),
+            _kernels.max_conflict(key_T, ts, txn_id, active, offsets, cols))
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -1291,9 +1291,9 @@ def test_query_csr_on_card_equals_nonzero_csr(cuda, case, k):
         answers.append([
             _kernels.deps_join(x["inc_T"], x["txn_id"], x["kind"],
                                x["status"], x["active"], off, c, x["before"],
-                               x["qkind"], form="csr", vals=v).cpu(),
+                               x["qkind"], vals=v).cpu(),
             _kernels.max_conflict(x["inc_T"], x["ts"], x["txn_id"],
-                                  x["active"], off, c, form="csr",
+                                  x["active"], off, c,
                                   vals=v).cpu()])
     for got in answers[1:]:
         assert torch.equal(answers[0][0], got[0])

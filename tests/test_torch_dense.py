@@ -1,9 +1,9 @@
 """The dense form of the consult kernels (K1d, K2d) on the CPU: the rule that
-picks CSR or dense, the one-shot and service consults with either form
-forced held against the JAX reference bit for bit, and bad forms.
+picks CSR or dense, and the one-shot and service consults down each of
+their routes held against the JAX reference bit for bit.
 
-On the CPU every form runs the wrappers' plain versions, so these tests hold
-the plumbing of ``form`` and the answers at the shapes the dense form takes;
+On the CPU every wrapper runs its plain version, so these tests hold the
+routing and the answers at the shapes the dense kernels take;
 the kernels themselves are held against the plain versions on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).  Inputs are made with
 numpy from fixed seeds and handed to both packages; the reference's Pallas
@@ -30,7 +30,6 @@ from cassandra_accord_tpu_torch.ops import graph_state as gs
 from cassandra_accord_tpu_torch.ops.pallas_join import overlap_join_fused
 
 K, B = 64, 13
-FORMS = ("csr", "dense")
 
 # ---------------------------------------------------------------------------
 # (a) the rule, at every shape of PERF.md's kernel table and its sweep
@@ -91,7 +90,7 @@ def test_join_form_at_the_kernel_table_shapes(shape):
 
 
 # ---------------------------------------------------------------------------
-# (b) the consults with either form against the reference
+# (b) the consults down either route against the reference
 # ---------------------------------------------------------------------------
 
 def _index(rng, t, k=K):
@@ -166,25 +165,32 @@ def _one_shot_case(t):
     return dict(consult=consult, join=join, mc=mc), want
 
 
-@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("route", ["csr", "dense"])
 @pytest.mark.parametrize("t", [61, 1003, 2049, 2056])
-def test_one_shot_consults_equal_reference(t, form):
+def test_one_shot_consults_equal_reference(t, route, monkeypatch):
     """consult, consult_packed (T % 8 == 0), overlap_join,
-    max_conflict_keys and overlap_join_fused with ``form`` forced, on rows
-    of 32-64 of 64 keys, equal the reference's answers bit for bit (the
-    reference's Pallas join in interpret mode); equal to each other too,
-    as the Pallas join equals the XLA join."""
+    max_conflict_keys and overlap_join_fused down ``route`` (the dense
+    [T, K] kernels, which the rule picks at K = 64, or the CSR route with values,
+    where a rule that refuses every shape sends them), on rows of 32-64 of
+    64 keys, equal the reference's answers bit for bit (the reference's
+    Pallas join in interpret mode); equal to each other too, as the Pallas
+    join equals the XLA join."""
     args, want = _one_shot_case(t)
-    got = {"consult": _port(dk.consult, *args["consult"], form=form),
-           "overlap_join": _port(dk.overlap_join, *args["join"], form=form),
-           "overlap_join_fused": _port(overlap_join_fused, *args["join"],
-                                       form=form),
-           "max_conflict_keys": _port(dk.max_conflict_keys, *args["mc"],
-                                      form=form)}
+    built = []
+    query_csr = dk.query_csr
+    monkeypatch.setattr(dk, "query_csr",
+                        lambda q: built.append(q.shape) or query_csr(q))
+    if route == "csr":
+        monkeypatch.setattr(_kernels, "tk_refusal",
+                            lambda k, *tensors: "the CSR route")
+    got = {"consult": _port(dk.consult, *args["consult"]),
+           "overlap_join": _port(dk.overlap_join, *args["join"]),
+           "overlap_join_fused": _port(overlap_join_fused, *args["join"]),
+           "max_conflict_keys": _port(dk.max_conflict_keys, *args["mc"])}
     if t % 8 == 0:
-        got["consult_packed"] = _port(dk.consult_packed, *args["consult"],
-                                      form=form)
+        got["consult_packed"] = _port(dk.consult_packed, *args["consult"])
     assert set(got) == set(want)
+    assert len(built) == (len(got) if route == "csr" else 0)
     for name, w in want.items():
         for a, b in zip(*(x if isinstance(x, tuple) else (x,)
                           for x in (got[name], w))):
@@ -193,7 +199,7 @@ def test_one_shot_consults_equal_reference(t, form):
     assert want["overlap_join"].any()
 
 
-def _ragged_pair(ix, rows, before, kind, packed, form):
+def _ragged_pair(ix, rows, before, kind, packed):
     """(reference, port) answers of the service consult for ragged rows."""
     batch = build_batch(rows, before, kind)
     live_T = np.ascontiguousarray(ix["live"].T).astype(np.float32)
@@ -211,18 +217,26 @@ def _ragged_pair(ix, rows, before, kind, packed, form):
         t(np.ascontiguousarray(ix["key"].T != 0).astype(np.uint8)),
         t(ix["ts"]), t(ix["txn_id"]), t(ix["kind"]), t(ix["status"]),
         t(ix["active"]), t(batch.flat_cols), t(batch.offsets),
-        t(batch.before), t(batch.kind), packed=packed, form=form)
+        t(batch.before), t(batch.kind), packed=packed)
     return [np.asarray(x) for x in ref], [x.numpy() for x in port]
 
 
-@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("route", ["csr", "dense"])
 @pytest.mark.parametrize("t", [61, 1003, 2049, 2056])
-def test_ragged_consult_wide_rows_equal_reference(t, form):
-    """The service consult with ``form`` forced: rows of 32-64 keys, one row
-    of 300 duplicates of one column (a u8 operand summed would wrap at
-    256), and rows with columns -1 and -K (wrapped once) and K and -K-1
-    (dropped), equal the reference's kernel bit for bit; packed too where
-    T % 8 == 0."""
+def test_ragged_consult_wide_rows_equal_reference(t, route, monkeypatch):
+    """The service consult down ``route`` (K12, ``fused_consult``, or
+    ``deps_join_dense`` and ``max_conflict_dense``, where a rule that
+    answers ``route`` sends it): rows of 32-64 keys, one row of 300
+    duplicates of one column (a u8 operand summed would wrap at 256), and
+    rows with columns -1 and -K (wrapped once) and K and -K-1 (dropped),
+    equal the reference's kernel bit for bit; packed too where T % 8 ==
+    0."""
+    monkeypatch.setattr(_kernels, "join_form", lambda *sizes: route)
+    fused = []
+    fused_consult = _kernels.fused_consult
+    monkeypatch.setattr(_kernels, "fused_consult",
+                        lambda *a, **kw: fused.append(1)
+                        or fused_consult(*a, **kw))
     rng = np.random.default_rng(t + 1)
     ix = _index(rng, t)
     _q, rows, before, kind = _wide_rows(rng)
@@ -234,45 +248,13 @@ def test_ragged_consult_wide_rows_equal_reference(t, form):
     before_rows = [tuple(int(v) for v in r) for r in before]
     for packed in ((False, True) if t % 8 == 0 else (False,)):
         ref, port = _ragged_pair(ix, rows, before_rows, [int(x) for x in kind],
-                                 packed, form)
+                                 packed)
         for a, b in zip(port, ref):
             _assert_equal(a, b)
+    assert bool(fused) == (route == "csr")
     deps, cmax = port
     assert cmax[1].any() and not cmax[3].any()
     assert not deps[3].any()
-
-
-# ---------------------------------------------------------------------------
-# (c) bad forms
-# ---------------------------------------------------------------------------
-
-def test_unknown_form_raises():
-    args, _want = _one_shot_case(61)
-    g = _index(np.random.default_rng(5), 64)
-    inc_T = torch.from_numpy(np.ascontiguousarray(g["live"].T).astype(np.uint8))
-    offsets = torch.tensor([0, 2], dtype=torch.int32)
-    cols = torch.tensor([1, 3], dtype=torch.int32)
-    lanes = torch.from_numpy(g["txn_id"])
-    jargs = (inc_T, lanes, torch.from_numpy(g["kind"]),
-             torch.from_numpy(g["status"]), torch.from_numpy(g["active"]),
-             offsets, cols, torch.ones((1, 5), dtype=torch.int32),
-             torch.ones((1,), dtype=torch.int8))
-    margs = (inc_T, torch.from_numpy(g["ts"]), lanes,
-             torch.from_numpy(g["active"]), offsets, cols)
-    for bad in ("sparse", "CSR", "", None):
-        with pytest.raises(ValueError):
-            _kernels.deps_join(*jargs, form=bad)
-        with pytest.raises(ValueError):
-            _kernels.max_conflict(*margs, form=bad)
-        with pytest.raises(ValueError):
-            _port(dk.consult, *args["consult"], form=bad)
-        with pytest.raises(ValueError):
-            _port(overlap_join_fused, *args["join"], form=bad)
-        with pytest.raises(ValueError):
-            ragged_consult_t(inc_T, inc_T, margs[1], lanes, jargs[2],
-                             jargs[3], jargs[4], cols, offsets, jargs[7],
-                             jargs[8], form=bad)
-    assert _kernels.FORMS == ("auto", "csr", "dense")
 
 
 # ---------------------------------------------------------------------------

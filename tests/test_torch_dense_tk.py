@@ -1,7 +1,7 @@
-"""The dense form of the consult on the [T, K] index (K1d/K2d _tk) on the CPU:
-the plain [T, K] versions and the one-shot consults with each form equal
-the JAX reference bit for bit, the rule for [T, K] callers, and the shapes
-the [T, K] kernels refuse.
+"""The consult on the [T, K] index on the CPU: the plain [T, K] versions
+(K1d/K2d _tk) and the one-shot consults by each route equal the JAX
+reference bit for bit, the rule for [T, K] callers (``tk_refusal``), and
+the shapes the [T, K] kernels refuse.
 
 On the CPU the wrappers run their plain versions, so these tests hold the
 arithmetic and the routing; the kernels themselves are held against the
@@ -29,7 +29,11 @@ from cassandra_accord_tpu_torch.ops import deps_kernels as dk
 from cassandra_accord_tpu_torch.ops import graph_state as gs
 from cassandra_accord_tpu_torch.ops.pallas_join import overlap_join_fused
 
-FORMS = ("auto", "csr", "dense")
+# the one-shot consults' routes: the public entry as the rule sends it
+# ("auto"), the entry sent down the CSR route (transpose, CSR query with
+# values, K1/K2) by a rule that refuses every shape, and the dense [T, K]
+# kernels' wrappers called directly
+ROUTES = ("auto", "csr", "dense")
 
 # (T, K, B, keys per query row): config 4's shape cut to size (64 of 128
 # keys a row), a T tail, a K tail the kernels take (80) and one they refuse
@@ -129,44 +133,74 @@ def test_plain_tk_versions_equal_reference(shape):
         _assert_equal(packed, want["consult_packed"][0])
 
 
-@pytest.mark.parametrize("form", FORMS)
+def _count_csr(monkeypatch, route):
+    """Count the CSR route's query builds; send every call down that route
+    for ``route`` "csr"."""
+    built = []
+    query_csr = dk.query_csr
+    monkeypatch.setattr(dk, "query_csr",
+                        lambda q: built.append(q.shape) or query_csr(q))
+    if route == "csr":
+        monkeypatch.setattr(_kernels, "tk_refusal",
+                            lambda k, *tensors: "the CSR route")
+    return built
+
+
+def _tk_consult(live, key, ts, txn_id, kind, status, active, q, before,
+                qkind, packed=False):
+    return (_kernels.deps_join_tk(live, txn_id, kind, status, active, q,
+                                  before, qkind, packed=packed),
+            _kernels.max_conflict_tk(key, ts, txn_id, active, q))
+
+
+TK_CALLS = {"consult": _tk_consult,
+            "consult_packed": functools.partial(_tk_consult, packed=True),
+            "overlap_join": _kernels.deps_join_tk,
+            "max_conflict_keys": _kernels.max_conflict_tk}
+
+
+@pytest.mark.parametrize("route", ROUTES)
 @pytest.mark.parametrize("shape", sorted(SHAPES))
-def test_one_shot_consults_equal_reference(shape, form, monkeypatch):
+def test_one_shot_consults_equal_reference(shape, route, monkeypatch):
     """consult, consult_packed (T % 8 == 0), overlap_join and
-    max_conflict_keys on the CPU with ``form`` forced or "auto": equal
-    the reference bit for bit; a forced "dense" on K = 72 raises."""
+    max_conflict_keys on the CPU by ``route``: equal the reference bit for
+    bit.  The entry takes the CSR route exactly where the rule refuses K
+    (K = 72)."""
     monkeypatch.setenv("ACCORD_DEVICE", "cpu")
     args, want = _case(shape)
     k = SHAPES[shape][1]
+    built = _count_csr(monkeypatch, route)
     calls = {"consult": (dk.consult, "consult"),
              "overlap_join": (dk.overlap_join, "join"),
              "max_conflict_keys": (dk.max_conflict_keys, "mc")}
     if "consult_packed" in want:
         calls["consult_packed"] = (dk.consult_packed, "consult")
     for name, (fn, which) in calls.items():
-        if form == "dense" and k % 16:
-            with pytest.raises(ValueError):
-                _port(fn, *args[which], form=form)
-            continue
-        got = _port(fn, *args[which], form=form)
+        got = _port(TK_CALLS[name] if route == "dense" else fn, *args[which])
         for a, w in zip(*(x if isinstance(x, tuple) else (x,)
                           for x in (got, want[name]))):
             _assert_equal(a, w)
+    csr = route == "csr" or (route == "auto" and k % 16 != 0)
+    assert len(built) == (len(calls) if csr else 0)
 
 
 @pytest.mark.parametrize("shape", sorted(SHAPES))
-def test_overlap_join_fused_equals_pallas_join(shape):
+def test_overlap_join_fused_equals_pallas_join(shape, monkeypatch):
     """The port's overlap_join_fused (its [T, K] route where the rule takes
-    the shape, the CSR route at K = 72) equals the reference's Pallas join
-    in interpret mode bit for bit."""
+    the shape, the CSR route at K = 72, and the CSR route where a rule that
+    refuses every shape sends it) equals the reference's Pallas join in
+    interpret mode bit for bit."""
     args, want = _case(shape)
     ref = _ref(ref_overlap_join_fused, *args["join"], interpret=True)
     _assert_equal(ref, want["overlap_join"])
-    for form in ("auto", "csr"):
-        _assert_equal(_port(overlap_join_fused, *args["join"], form=form), ref)
+    _assert_equal(_port(overlap_join_fused, *args["join"]), ref)
+    built = _count_csr(monkeypatch, "csr")
+    _assert_equal(_port(overlap_join_fused, *args["join"]), ref)
+    assert len(built) == 1
 
 
-# (B, T, K, form the rule picks for a [T, K] caller): every shape of
+# (B, T, K, the route the rule picks for a [T, K] caller: "dense" for the
+# [T, K] kernels): every shape of
 # PERF.md's kernel tables (the sweep measured the [T, K] kernels faster at
 # each), and K outside what they take
 TABLE_TK = {
@@ -193,26 +227,24 @@ TABLE_TK = {
 
 @pytest.mark.parametrize("shape", sorted(TABLE_TK))
 def test_join_form_for_tk_callers(shape):
+    """The [T, K] callers' rule, ``tk_refusal``: the [T, K] kernels for
+    every K they take, whatever B and T."""
     b, t, k, want = TABLE_TK[shape]
-    assert _kernels.join_form(b, t, k, layout="tk") == want
     assert (_kernels.tk_refusal(k) is None) == (want == "dense")
 
 
-def test_join_form_rejects_an_unknown_layout():
-    with pytest.raises(ValueError):
-        _kernels.join_form(8, 256, 16, 16, layout="kt_tk")
-
-
 @pytest.mark.parametrize("k", [72, _kernels.DENSE_MAX_K + 16])
-def test_forced_dense_on_a_refused_k_raises(k):
+def test_a_refused_k_takes_the_csr_route(k, monkeypatch):
     """K % 16 != 0 or K > DENSE_MAX_K: the [T, K] kernels cannot take the
-    index, so a forced form="dense" raises, and "auto" takes the CSR route
-    and equals it."""
+    index, so the consult takes the CSR route and equals the plain [T, K]
+    versions."""
     t, b = 64, 3
     c = _case_arrays(t, k, b, 4, seed=k)
-    with pytest.raises(ValueError):
-        _port(dk.consult, *c, form="dense")
-    for a, w in zip(_port(dk.consult, *c), _port(dk.consult, *c, form="csr")):
+    assert _kernels.tk_refusal(k) is not None
+    built = _count_csr(monkeypatch, "auto")
+    got = _port(dk.consult, *c)
+    assert len(built) == 1
+    for a, w in zip(got, _port(_tk_consult, *c)):
         _assert_equal(a, w)
 
 

@@ -213,13 +213,55 @@ def _oneshot_path_against_walk(seed, txn_capacity):
 
 
 def test_legacy_oneshot_path_matches_walk_oracle():
-    """tpu_service="off": the one-shot ragged_consult_t path."""
+    """tpu_service="off": the one-shot path (the service's dispatch,
+    ``kernel.consult_batch``, over the resolver's own buffers)."""
     _oneshot_path_against_walk(78, 64)
 
 
 def test_oneshot_path_bit_packed_at_32k_slots_matches_walk_oracle():
-    """At T >= 32,768 slots the one-shot path bit-packs the deps mask."""
+    """At T >= 32,768 slots (where the card bit-packs the deps mask; on the
+    CPU it stays bool, ``kernel.packs``)."""
     _oneshot_path_against_walk(79, 32768)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_oneshot_and_service_answer_through_one_dispatch(packed, monkeypatch):
+    """The resolver's one-shot ``_consult_device`` and the service's
+    ``consult_rows`` each dispatch their batch once through
+    ``kernel.consult_batch`` and give identical answers, the host tier's,
+    with the deps mask bool or bit-packed (the packing rule, ``kernel.packs``,
+    made to answer ``packed``: on the CPU it never packs)."""
+    from cassandra_accord_tpu_torch.device_service import kernel as kmod
+    calls, unpacked = [], []
+    consult_batch, unpack_deps_ = kmod.consult_batch, kmod.unpack_deps
+    monkeypatch.setattr(kmod, "consult_batch", lambda batch, buffers: (
+        calls.append(batch.rows) or consult_batch(batch, buffers)))
+    monkeypatch.setattr(kmod, "unpack_deps", lambda rows, t: (
+        unpacked.append(rows.dtype) or unpack_deps_(rows, t)))
+    monkeypatch.setattr(kmod, "packs", lambda buffers: packed)
+    store, resolver, _oracle = make_service_resolver()
+    keys = [rk(i * 10) for i in range(8)]
+    hlc = _random_index(store, resolver, RandomSource(91), keys)
+    rng = np.random.default_rng(91)
+    b, slots = 13, sorted(resolver.key_slot.values())
+    q = np.zeros((b, resolver._k), dtype=np.int8)
+    for i in range(1, b):                        # row 0 names no key
+        q[i, rng.choice(slots, int(rng.integers(1, 4)), replace=False)] = 1
+    before = np.asarray([tid(int(rng.integers(1, hlc + 2))).as_timestamp()
+                         .pack_lanes() for _ in range(b)], dtype=np.int32)
+    kind = rng.choice([int(TxnKind.WRITE), int(TxnKind.READ)], b) \
+        .astype(np.int8)
+    resolver._flush()
+    one_shot = resolver._consult_device(q, before, kind)
+    service = resolver.service().consult_rows(q, before, kind)
+    host = resolver._consult_host(q, before.astype(np.int64), kind)
+    assert calls == [b, b]
+    assert unpacked == ([np.uint8] * 2 if packed else [])
+    for got, again, want in zip(one_shot, service, host):
+        assert got.dtype == again.dtype and np.array_equal(got, again)
+        assert np.array_equal(got, want)
+    assert one_shot[0].any() and one_shot[1].any()
+    assert not one_shot[0][0].any() and not one_shot[1][0].any()
 
 
 # ---------------------------------------------------------------------------

@@ -68,7 +68,7 @@ def _rows(rng, b, k, width=2, odd_kinds=False, wild_cols=False):
     return rows, before, kind
 
 
-def _both(ix, batch, packed, form="auto"):
+def _both(ix, batch, packed):
     """(reference, port) answers of one window: the reference's
     ``consult_t()`` (f32 [K, T] index, the batch densified by scatter) and
     the port's ``ragged_consult_t`` read back with ``to_host``."""
@@ -86,7 +86,7 @@ def _both(ix, batch, packed, form="auto"):
         t(np.ascontiguousarray(ix["key"].T != 0).astype(np.uint8)),
         t(ix["ts"]), t(ix["txn_id"]), t(ix["kind"]), t(ix["status"]),
         t(ix["active"]), t(batch.flat_cols), t(batch.offsets),
-        t(batch.before), t(batch.kind), packed=packed, form=form))
+        t(batch.before), t(batch.kind), packed=packed))
     return [np.asarray(x) for x in ref], list(port)
 
 
@@ -139,15 +139,17 @@ def test_ragged_consult_equals_reference_consult_t(case):
 
 
 @pytest.mark.parametrize("form", ["csr", "dense"])
-def test_ragged_consult_forced_forms_equal_reference(form):
-    """Both branches of the window (K12; K1d and K2d into one buffer) give
-    the reference's answers."""
+def test_ragged_consult_forced_forms_equal_reference(form, monkeypatch):
+    """Both branches of the window (K12; K1d and K2d into one buffer), each
+    taken where a rule that answers ``form`` sends it, give the reference's
+    answers."""
+    monkeypatch.setattr(_kernels, "join_form", lambda *sizes: form)
     rng = np.random.default_rng(41)
     ix = _index(rng, 512, 64)
     rows, before, kind = _rows(rng, 12, 64, width=40)
     batch = build_batch(rows, before, kind)
     for packed in (False, True):
-        ref, port = _both(ix, batch, packed, form=form)
+        ref, port = _both(ix, batch, packed)
         for a, w in zip(port, ref):
             _assert_equal(a, w)
 
@@ -211,15 +213,16 @@ def test_fused_consult_plain_equals_k1_and_k2_plain(t, k, b):
 @pytest.mark.parametrize("t,packed", [(256, False), (256, True),
                                       (1003, False)])
 @pytest.mark.parametrize("form", ["csr", "dense"])
-def test_answers_are_views_of_one_buffer(packed, form, t):
+def test_answers_are_views_of_one_buffer(packed, form, t, monkeypatch):
     """The lanes lie at offset 0 of one buffer and the deps from the next
     16-byte boundary, on both branches of the window."""
+    monkeypatch.setattr(_kernels, "join_form", lambda *sizes: form)
     args = _kernel_args(np.random.default_rng(5), t, 16, 5)
     live_T, key_T, ts, txn_id, kind, status, active, offsets, cols, before, \
         qkind = args
     deps, lanes = ragged_consult_t(live_T, key_T, ts, txn_id, kind, status,
                                    active, cols, offsets, before, qkind,
-                                   packed=packed, form=form)
+                                   packed=packed)
     assert deps.untyped_storage().data_ptr() == \
         lanes.untyped_storage().data_ptr()
     assert lanes.storage_offset() == 0 and lanes.dtype == torch.int32

@@ -25,6 +25,7 @@ from cassandra_accord_tpu.ops import graph_state as ref_gs
 from accord_bench import gen, named
 from accord_bench.reference import StepReference
 from cassandra_accord_tpu_torch.models import conflict_graph as cg
+from cassandra_accord_tpu_torch.ops import _kernels
 from cassandra_accord_tpu_torch.ops import deps_kernels as dk
 from cassandra_accord_tpu_torch.ops import graph_state as gs
 
@@ -86,7 +87,7 @@ def test_scan_steps_equal_jax_and_reference(seed):
         bt = _batch(ev)
         widths.update((bt["key_inc"] != 0).sum(axis=1).tolist())
         kinds.update(ev["kind"].tolist())
-        assert dk._tk_dense("auto", port.key_inc, torch.from_numpy(bt["key_inc"]))
+        assert _kernels.tk_refusal(port.key_inc.shape[1]) is None
         port, deps, applied = cg.txn_step(
             port, cg.TxnBatch(**{f: torch.from_numpy(np.ascontiguousarray(v))
                                  for f, v in bt.items()}))
@@ -118,8 +119,9 @@ def test_scan_steps_equal_jax_and_reference(seed):
 
 @pytest.mark.parametrize("seed", [2 ** 31 + 9, 23])
 def test_scan_join_routes_agree(seed):
-    """``overlap_join`` with ``form="csr"`` (transpose, CSR query, K1) gives
-    the deps of the [T, K] route on the store and after each step."""
+    """``overlap_join`` down the CSR route (transpose, CSR query, K1; where
+    a rule that refuses every shape sends it) and ``deps_join_tk`` give the
+    deps of the [T, K] route on the store and after each step."""
     traffic = _traffic(seed)
     port = gs.state_from_numpy(_fields(traffic.initial()), device="cpu")
     for s in range(4):
@@ -130,6 +132,8 @@ def test_scan_join_routes_agree(seed):
                 bt["key_inc"], bt["txn_id"], bt["kind"])
         tk = dk.overlap_join(*args)
         assert tk.any()
-        _equal(dk.overlap_join(*args, form="csr").numpy(), tk.numpy())
-        _equal(dk.overlap_join(*args, form="dense").numpy(), tk.numpy())
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(_kernels, "tk_refusal", lambda k, *x: "the CSR route")
+            _equal(dk.overlap_join(*args).numpy(), tk.numpy())
+        _equal(_kernels.deps_join_tk(*args).numpy(), tk.numpy())
         port, _deps, _applied = cg.txn_step(port, cg.TxnBatch(**bt))

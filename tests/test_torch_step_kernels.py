@@ -128,9 +128,9 @@ def test_query_csr_equals_nonzero_csr(case, k):
         answers.append((
             _kernels.deps_join(inc_t, tt["lanes"], tt["kind"], tt["status"],
                                tt["active"], off, c, tt["before"],
-                               tt["qkind"], form="csr", vals=v),
+                               tt["qkind"], vals=v),
             _kernels.max_conflict(inc_t, tt["lanes"] + 1, tt["lanes"],
-                                  tt["active"], off, c, form="csr", vals=v)))
+                                  tt["active"], off, c, vals=v)))
     assert torch.equal(answers[0][0], answers[1][0])
     assert torch.equal(answers[0][1], answers[1][1])
     ref_deps = ref_dk.overlap_join(*(jnp.asarray(x) for x in (

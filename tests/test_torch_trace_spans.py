@@ -25,7 +25,7 @@ from cassandra_accord_tpu_torch.device_service.service import \
     DeviceConsultService
 from cassandra_accord_tpu_torch.models import conflict_graph as cg
 from cassandra_accord_tpu_torch.observe import profiler
-from cassandra_accord_tpu_torch.ops import deps_kernels as dk
+from cassandra_accord_tpu_torch.ops import _kernels
 from cassandra_accord_tpu_torch.ops import graph_state as gs
 
 PORT = Path(__file__).resolve().parent.parent / "cassandra_accord_tpu_torch"
@@ -224,8 +224,7 @@ def test_txn_step_spans_and_syncs(k, gc, tmp_path):
     ``accord.kernel.join_tk`` holds the one launch; ``gc_step`` adds
     ``accord.gc`` and its eviction's sync."""
     run, batch = _step_run(3, k, gc)
-    inc = torch.zeros((T, k), dtype=torch.int8)
-    csr = not dk._tk_dense("auto", inc, batch.key_inc)
+    csr = _kernels.tk_refusal(k) is not None
     assert csr == (k == 40)
     _, spans = _spans(run, tmp_path)
     count = {n: len(v) for n, v in spans.items()}

@@ -99,9 +99,8 @@ def halves(args):
     live, key, ts, lanes, kind, status, active, offsets, cols, before, \
         qkind = args
     return (K.deps_join(live, lanes, kind, status, active, offsets, cols,
-                        before, qkind, form="csr"),
-            K.max_conflict(key, ts, lanes, active, offsets, cols,
-                           form="csr"))
+                        before, qkind),
+            K.max_conflict(key, ts, lanes, active, offsets, cols))
 
 
 def ptxas_fused(text):

@@ -7,8 +7,8 @@ checkout's, or against variants of itself, in turns on one card.
 ``build/parent`` holds the earlier checkout (``git archive <commit>``
 unpacked there); its ``csrc/dense_join.cu`` is compiled beside this one
 into ``build/kt_compare/`` (ignored by git) with the port's flags, and the
-dense wrappers (``_kernels.deps_join`` / ``max_conflict`` with
-``form="dense"``, whose C entry points both checkouts share) run on either
+dense wrappers (``_kernels.deps_join_dense`` / ``max_conflict_dense``,
+whose C entry points both checkouts share) run on either
 library by swapping ``_kernels._LIB``.  At each shape of PERF.md's [K, T]
 table both libraries' answers are held against the plain versions, then
 K1d and K2d are timed cold-L2 in CUDA graphs (``chip_smoke.device_ms``) in
@@ -153,18 +153,15 @@ def main(argv) -> int:
                                  margs[5])[0]]}
         for name in turns:
             K._LIB = libs[name]
-            got = (K.deps_join(*jargs, form="dense"),
-                   K.max_conflict(*margs, form="dense"))
+            got = (K.deps_join_dense(*jargs), K.max_conflict_dense(*margs))
             torch.cuda.synchronize()
             r = row.setdefault(name, {"equal": [], "k1_ms": [], "k2_ms": []})
             r["equal"].append(all(torch.equal(a, w)
                                   for a, w in zip(got, want)))
             r["k1_ms"].append(cs.device_ms(
-                torch, lambda: K.deps_join(*jargs, form="dense"), ITERS,
-                flush))
+                torch, lambda: K.deps_join_dense(*jargs), ITERS, flush))
             r["k2_ms"].append(cs.device_ms(
-                torch, lambda: K.max_conflict(*margs, form="dense"), ITERS,
-                flush))
+                torch, lambda: K.max_conflict_dense(*margs), ITERS, flush))
         K._LIB = libs["tree"]
         print(json.dumps(row), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
