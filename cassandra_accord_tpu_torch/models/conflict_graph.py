@@ -32,7 +32,8 @@ slot T-1 followed by padding rows is not inserted, exactly as in the
 reference.
 
 On the card a step reads nothing back: the rows are written and the
-frontier is found by kernels (csrc/step_rows.cu), the join's CSR query is
+frontier is found by kernels (csrc/step_rows.cu), the conflict max by one
+pass over the deps rows (csrc/lex_max.cu), the join's CSR query is
 built at a capacity fixed by its shape (``deps_kernels.query_csr``), and
 the status codes go in as launch arguments, so the host queues the whole
 step while the device runs it.  ``gc_step`` reads its eviction list back.

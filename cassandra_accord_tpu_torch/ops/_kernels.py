@@ -30,6 +30,9 @@ hand-written CUDA for sm_90a and has one wrapper here, named as its
   the reference's scatter keeps it), the second clears the ready rows whose
   adjacency meets a blocked column (the reference's signed product test),
   reading only those rows.
+- ``lex_max_deps`` (csrc/lex_max.cu), the step's MaxConflicts: per row of
+  the [B, T] deps mask, the lex max of the slots' [T, 5] lanes by
+  ``lex_max_masked``'s rule, and the row's OR, each deps byte read once.
 
 Each source's header says what bounds it on the H100.
 
@@ -99,7 +102,8 @@ LAUNCHES: Dict[str, int] = {"deps_join": 0, "max_conflict": 0,
                             "deps_join_dense": 0, "max_conflict_dense": 0,
                             "deps_join_dense_tk": 0,
                             "max_conflict_dense_tk": 0, "fused_consult": 0,
-                            "write_rows": 0, "frontier": 0}
+                            "write_rows": 0, "frontier": 0,
+                            "lex_max_deps": 0}
 
 # the dense forms' int32 sums stay exact (255 * 2^14 keys < 2^31), and the
 # [K, T] form's query bytes small
@@ -219,6 +223,8 @@ def lib() -> ctypes.CDLL:
         so.write_rows_launch.restype = i32
         so.frontier_launch.argtypes = [vp] * 3 + [i64] * 2 + [vp]
         so.frontier_launch.restype = i32
+        so.lex_max_deps_launch.argtypes = [vp, vp, i32, i64, vp, vp, vp]
+        so.lex_max_deps_launch.restype = i32
         _LIB = so
     return _LIB
 
@@ -365,6 +371,11 @@ def lex_max_masked(vals: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         tie = tie & (v == best[:, None])
         out.append(best.clamp_min(0))
     return torch.stack(out, dim=-1).to(torch.int32)    # [B, L]
+
+
+def lex_max_deps_plain(ts: torch.Tensor, deps: torch.Tensor):
+    """``lex_max_deps`` in torch ops (the CPU's form)."""
+    return lex_max_masked(ts[None], deps), deps.any(dim=1)
 
 
 def _max_of(share, ts, txn_id, active):
@@ -894,3 +905,34 @@ def frontier_rows(adj: torch.Tensor, blocked: torch.Tensor,
     rc = lib().frontier_launch(_ptr(adj), _ptr(blocked), _ptr(ready), r, n,
                                _stream(dev))
     return _launched("frontier", rc, ready)
+
+
+# ---------------------------------------------------------------------------
+# the conflict-graph step's MaxConflicts
+# ---------------------------------------------------------------------------
+
+def lex_max_deps(ts: torch.Tensor, deps: torch.Tensor):
+    """(conflict_max [B, 5] int32, any_dep [B] bool): per row of the [B, T]
+    bool ``deps``, ``lex_max_masked`` of the [T, 5] int32 lanes ``ts`` over
+    the slots it names (zero lanes when none), and whether it names any.
+    On the card one launch (csrc/lex_max.cu) and nothing read back; on the
+    CPU the plain version."""
+    dev = deps.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"lex_max_deps takes CUDA or CPU tensors, got {dev}")
+    if deps.dim() != 2:
+        raise ValueError(f"deps must be [B, T], got shape {tuple(deps.shape)}")
+    b, t = deps.shape
+    _check("deps", deps, torch.bool, (b, t), dev)
+    _check("ts", ts, torch.int32, (t, TS_LANES), dev)
+    if dev.type == "cpu":
+        return lex_max_deps_plain(ts, deps)
+    if t >= 2 ** 31 or b >= 2 ** 31:
+        raise ValueError(f"shape out of the kernel's range: B={b} T={t}")
+    out = torch.empty((b, TS_LANES), dtype=torch.int32, device=dev)
+    any_dep = torch.empty((b,), dtype=torch.bool, device=dev)
+    if b == 0 or t == 0:
+        return out.zero_(), any_dep.zero_()
+    rc = lib().lex_max_deps_launch(_ptr(deps), _ptr(ts), b, t, _ptr(out),
+                                   _ptr(any_dep), _stream(dev))
+    return _launched("lex_max_deps", rc, (out, any_dep))

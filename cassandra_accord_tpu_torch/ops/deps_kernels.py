@@ -30,8 +30,9 @@ bytes, the query to CSR with its values beside the columns, at a capacity
 fixed by its shape (``query_csr``: nothing read back) — and the CSR
 kernels K1 (``_kernels.deps_join``) and/or K2 (``_kernels.max_conflict``,
 csrc/consult.cu) with those values, which sum the signed products as the
-[T, K] kernels do.  On CPU tensors every wrapper runs its plain torch
-version.
+[T, K] kernels do.  ``max_conflict_ts`` is one kernel,
+``_kernels.lex_max_deps`` (csrc/lex_max.cu).  On CPU tensors every wrapper
+runs its plain torch version.
 The graph functions are ``jax.jit`` code in the reference, not Pallas, so
 they are torch ops on the tensors' device, but for ``kahn_frontier``'s row
 test (``_kernels.frontier_rows``); their while loops are Python loops with
@@ -44,7 +45,6 @@ from typing import Tuple
 import torch
 
 from . import _kernels
-from ._kernels import lex_max_masked as _lex_max_masked
 from ._kernels import witness_table as _witness_table
 from .graph_state import APPLIED, INVALIDATED, STABLE
 from ..observe.profiler import span
@@ -257,10 +257,11 @@ def max_conflict_ts(index_exec_at: torch.Tensor,  # [T, 5] int32
     (PreAccept.java:245-267, MaxConflicts.java:32).  The proposal itself
     stays on the host (its HLC register is host clock state).
 
+    Both come from one pass over the deps rows
+    (``_kernels.lex_max_deps``, csrc/lex_max.cu on the card).
+
     Returns (conflict_max [B, 5] int32, any_dep [B] bool)."""
-    deps = deps.to(torch.bool)
-    return (_lex_max_masked(index_exec_at[None, :, :], deps),
-            torch.any(deps, dim=1))
+    return _kernels.lex_max_deps(_i32(index_exec_at), _bool(deps))
 
 
 # ---------------------------------------------------------------------------

@@ -187,6 +187,9 @@ REPLACES = {
     # frontier's product, both plain XLA
     "write_rows": "cassandra_accord_tpu/models/conflict_graph.py:57",
     "frontier": "cassandra_accord_tpu/ops/deps_kernels.py:261",
+    # the step's MaxConflicts: the XLA chain of max_conflict_ts (its
+    # _lex_max_masked at :101), five lanes of where / max / == / &
+    "lex_max_deps": "cassandra_accord_tpu/ops/deps_kernels.py:117",
 }
 ALSO_REPLACES = {"fused_consult": MAX_HALF}
 SOURCES = {"deps_join": "cassandra_accord_tpu_torch/csrc/consult.cu",
@@ -200,12 +203,13 @@ SOURCES = {"deps_join": "cassandra_accord_tpu_torch/csrc/consult.cu",
                "cassandra_accord_tpu_torch/csrc/dense_join_tk.cu",
            "fused_consult": "cassandra_accord_tpu_torch/csrc/consult.cu",
            "write_rows": "cassandra_accord_tpu_torch/csrc/step_rows.cu",
-           "frontier": "cassandra_accord_tpu_torch/csrc/step_rows.cu"}
+           "frontier": "cassandra_accord_tpu_torch/csrc/step_rows.cu",
+           "lex_max_deps": "cassandra_accord_tpu_torch/csrc/lex_max.cu"}
 CSR_KERNELS = ("deps_join", "max_conflict")
 # the service's window on the CSR form: one K12 launch
 FUSED = "fused_consult"
 TK_KERNELS = ("deps_join_dense_tk", "max_conflict_dense_tk")
-STEP_KERNELS = ("write_rows", "frontier")
+STEP_KERNELS = ("write_rows", "frontier", "lex_max_deps")
 # the wrappers the recorders hold: the [K, T] ones (a form each), the
 # [T, K] ones and K12; their plain versions are ``<name>_plain``
 WRAPPERS = ("deps_join", "max_conflict", "deps_join_dense",
@@ -2504,9 +2508,10 @@ def _graph_step(ctx):
 def _step_kernels(ctx, state, steps, launches):
     """The step's own kernels at the graph path's shapes, on clones of its
     final state: ``write_rows`` (the witness's fields, then the
-    stabilisation's) and ``frontier`` each bit-equal to its plain version,
-    launched twice and once a step on the counted path; their ms (from a
-    CUDA graph), plain ms and bounds go to the kernels line."""
+    stabilisation's), ``frontier`` and ``lex_max_deps`` each bit-equal to
+    its plain version, launched twice, once and once a step on the counted
+    path; their ms (from a CUDA graph), plain ms and bounds go to the
+    kernels line."""
     import numpy as np
     torch = ctx["torch"]
     from cassandra_accord_tpu_torch.ops import _kernels as K
@@ -2517,6 +2522,9 @@ def _step_kernels(ctx, state, steps, launches):
     need(launches["frontier"] == steps,
          f"frontier launched {launches['frontier']} times, expected one "
          f"per step ({steps})")
+    need(launches["lex_max_deps"] == steps,
+         f"lex_max_deps launched {launches['lex_max_deps']} times, expected "
+         f"one per step ({steps})")
     t, k, b = state.txn_slots, state.key_slots, GRAPH["B"]
     dev, flush = ctx["dev"], ctx["flush"]
     rng = np.random.default_rng(23)
@@ -2598,7 +2606,55 @@ def _step_kernels(ctx, state, steps, launches):
             state.adj, blocked, ready.clone()), 5, flush),
         "library_ms": None, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes", "bytes": nbytes, "ops": 0})
+    rows += _lex_max_rows(ctx, state.ts, b)
     ctx["rows"].extend(rows)
+    return rows
+
+
+# the lex max's rows by density: sparse ones (the step cells' rows), then
+# an all-true and an all-false row every 64, and a dense one every 32
+LEX_DENSITY = (0.001, 0.01, 0.05, 0.2)
+
+
+def _lex_max_rows(ctx, ts_full, b):
+    """``lex_max_deps`` on the final state's executeAt lanes, at the step's
+    T and the mesh rank's (its first T / 4 slots): bit-equal to its plain
+    version over rows of every density, all-true and all-false rows, then
+    timed (a CUDA graph of calls, cold and warm), the plain version eager."""
+    torch = ctx["torch"]
+    from cassandra_accord_tpu_torch.ops import _kernels as K
+    dev, flush = ctx["dev"], ctx["flush"]
+    rows = []
+    for label, t in (("graph_final", ts_full.shape[0]),
+                     ("mesh_rank", ts_full.shape[0] // MESH["ranks"])):
+        ts = ts_full[:t].contiguous()
+        gen = torch.Generator(device=dev).manual_seed(29)
+        dens = torch.tensor([LEX_DENSITY[i % len(LEX_DENSITY)]
+                             for i in range(b)], device=dev)
+        deps = torch.rand((b, t), device=dev, generator=gen) < dens[:, None]
+        deps[::64] = True
+        deps[1::64] = False
+        deps[2::32] = torch.rand((t,), device=dev, generator=gen) < 0.9
+        got = K.lex_max_deps(ts, deps)
+        want = K.lex_max_deps_plain(ts, deps)
+        need(all(torch.equal(x, y) for x, y in zip(got, want)),
+             f"lex_max_deps ({label}) differs from its plain version")
+        nbytes = b * t + 20 * t + 21 * b
+        rows.append({
+            "name": "lex_max_deps", "shape": f"{label}_T{t}_B{b}",
+            "path": "graph", "B": b, "T": t, "K": 0,
+            "nnz": int(deps.sum()), "packed": False, "max_abs_err": 0,
+            "ms": device_ms(torch, lambda: K.lex_max_deps(ts, deps), 20,
+                            flush),
+            "warm_ms": device_ms(torch, lambda: K.lex_max_deps(ts, deps), 20),
+            "method_floor_ms": method_floor_ms(ctx, 20),
+            "wrapper_host_us": host_us(
+                torch, lambda: K.lex_max_deps(ts, deps), 20),
+            "plain_ms": eager_ms(
+                torch, lambda: K.lex_max_deps_plain(ts, deps), 5, flush),
+            "library_ms": None,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": nbytes, "ops": 0})
     return rows
 
 
@@ -3477,8 +3533,9 @@ FUSED_KEYS = ("k12_ms_turns", "k1_k2_ms", "k1_k2_host_us")
 def kernels_line(ctx):
     """One entry per kernel and form (K1, K2 in the CSR form; K1d, K2d in
     the dense form on [K, T] and on [T, K]; K12, both halves in one launch,
-    the service's window; the step's ``write_rows`` and ``frontier``, at
-    the graph phase's shapes with its launch counts): the main path's (the burn's;
+    the service's window; the step's ``write_rows``, ``frontier`` and
+    ``lex_max_deps``, at the graph phase's shapes with its launch counts):
+    the main path's (the burn's;
     for the [T, K] kernels the one-shot consult of config 4's batch)
     launch count and the numbers at the largest call it made (the dense
     kernels: at config 4, their own path: the service's or the one-shot

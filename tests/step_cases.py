@@ -1,6 +1,6 @@
 """Inputs shared by the CPU and the card tests of the conflict-graph step's
-kernels (``_kernels.write_rows``, ``_kernels.frontier_rows``) and of the
-join's CSR query (``deps_kernels.query_csr``), and the CSR form it
+kernels (``_kernels.write_rows``, ``_kernels.frontier_rows``,
+``_kernels.lex_max_deps``) and of the join's CSR query (``deps_kernels.query_csr``), and the CSR form it
 replaced, as plain torch (this module imports no JAX, so the card's tests use it).
 """
 import numpy as np
@@ -135,3 +135,37 @@ def nonzero_csr(q):
                                               minlength=q.shape[0]), 0)
     return (offsets, nz[:, 1].to(torch.int32).contiguous(),
             q[nz[:, 0], nz[:, 1]].contiguous())
+
+
+# the lex max's rows: all-false, all-true, then by density
+LEX_ROWS = ("none", "all", 0.001, 0.05, 0.9)
+MAXL = 0x7FFFFFFF
+# lanes as int32 draws: the whole range with its edges and -1, -2, 0 mixed
+# in; ties on the first three lanes; or every slot equal on lanes 0 and 1,
+# so an all-true row sees no seed until lane 2 (csrc/lex_max.cu's rule)
+LEX_LANES = ("wide", "ties", "uniform")
+_EDGES = np.array([-2 ** 31, -2, -1, 0, 1, MAXL], dtype=np.int64)
+
+
+def lex_case(lanes, b, t, start=0, seed=0):
+    """(ts [T, 5] int32, deps [B, T] bool) as numpy arrays: row i takes
+    ``LEX_ROWS[(i + start) % 5]``, the lanes as ``lanes`` says."""
+    rng = np.random.default_rng(seed)
+    ts = rng.integers(-2 ** 31, 2 ** 31, (t, gs.TS_LANES), dtype=np.int64)
+    edge = rng.random((t, gs.TS_LANES)) < 0.3
+    ts[edge] = rng.choice(_EDGES, int(edge.sum()))
+    if lanes == "ties":
+        ts[:, :3] = rng.choice(np.array([-2, -1, 0, 1, MAXL]), (t, 3))
+    elif lanes == "uniform":
+        ts[:, 0] = 7
+        ts[:, 1] = -5
+        ts[:, 2:] = rng.choice(np.array([-3, -1, 0, 2, MAXL]),
+                               (t, gs.TS_LANES - 2))
+    deps = np.zeros((b, t), dtype=bool)
+    for i in range(b):
+        kind = LEX_ROWS[(i + start) % len(LEX_ROWS)]
+        if kind == "all":
+            deps[i] = True
+        elif kind != "none":
+            deps[i] = rng.random(t) < kind
+    return ts.astype(np.int32), deps

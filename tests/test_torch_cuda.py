@@ -1154,13 +1154,44 @@ def test_step_syncs_are_the_sync_spans_on_card(cuda, k, tmp_path):
         assert any(a <= at <= b for at in in_gc)
 
 
+def test_step_lex_max_span_is_one_kernel_on_card(cuda, tmp_path):
+    """Inside ``accord.step.lex_max`` a ``txn_step`` launches one kernel,
+    the lex max's (no torch op, so no [B, T] temporary)."""
+    import json
+    from torch.profiler import ProfilerActivity, profile
+    state, batch = _step_inputs(32, cuda)
+    cg.txn_step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        cg.txn_step(state, batch)
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    kernels = {(e.get("args") or {}).get("correlation"): e["name"]
+               for e in events if e.get("cat") in ("kernel", "gpu_memset",
+                                                   "gpu_memcpy")}
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+             for e in events if e.get("cat") == "user_annotation"
+             and e["name"] == "accord.step.lex_max"]
+    assert len(spans) == 1
+    a, b = spans[0]
+    inside = [kernels[c] for e in events if e.get("cat") == "cuda_runtime"
+              and a <= float(e["ts"]) <= b
+              and (c := (e.get("args") or {}).get("correlation")) in kernels]
+    assert len(inside) == 1 and "lex_max_deps_kernel" in inside[0], inside
+
+
 @pytest.mark.parametrize("k", [32, 40])
 def test_txn_step_captures_in_a_cuda_graph(cuda, k):
     """``txn_step`` on either route of the join captures in a CUDA graph (a
     capture refuses any read-back, so this proves the step has none), and
     a replay from the same state gives the eager step's deps, applied set
     and state, bit for bit, with one ``write_rows`` launch for each of the
-    witness and the stabilisation and one ``frontier`` launch."""
+    witness and the stabilisation, one ``lex_max_deps`` launch and one
+    ``frontier`` launch."""
     state, batch = _step_inputs(k, cuda)
     start = [x.clone() for x in state]
     side = torch.cuda.Stream()
@@ -1176,6 +1207,7 @@ def test_txn_step_captures_in_a_cuda_graph(cuda, k):
         _s, deps, applied = cg.txn_step(state, batch)
     assert _kernels.LAUNCHES["write_rows"] == before["write_rows"] + 2
     assert _kernels.LAUNCHES["frontier"] == before["frontier"] + 1
+    assert _kernels.LAUNCHES["lex_max_deps"] == before["lex_max_deps"] + 1
     for x, x0 in zip(state, start):
         x.copy_(x0)
     graph.replay()
@@ -1188,6 +1220,45 @@ def test_txn_step_captures_in_a_cuda_graph(cuda, k):
     assert torch.equal(got[0], want_deps) and torch.equal(got[1], want_applied)
     for name, x, y in zip(gs.GraphState._fields, got[2], state):
         assert torch.equal(x, y), name
+
+
+# (B, T, where the inputs lie): the step's and the mesh rank's shapes, odd
+# T (byte loads, a partial last tile), one row, more rows than the step's;
+# "offset" puts deps one byte and ts four bytes past an aligned base
+LEX_SHAPES = [(256, 65536, ""), (256, 16384, ""), (13, 1003, ""),
+              (1, 4096, ""), (300, 2049, ""), (13, 4096, "offset")]
+
+
+def _lex_on(a, device, offset):
+    x = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    if not offset:
+        return x
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=device)
+    flat[1:] = x.reshape(-1)
+    return flat[1:].view(x.shape)
+
+
+@pytest.mark.parametrize("lanes", step_cases.LEX_LANES)
+@pytest.mark.parametrize("shape", LEX_SHAPES)
+def test_lex_max_deps_equals_plain(cuda, shape, lanes):
+    """The lex max kernel (csrc/lex_max.cu) equals its plain version,
+    ``lex_max_masked`` and ``any``, bit for bit, one launch a call: rows
+    all-false, all-true and of densities 0.001, 0.05 and 0.9 (each row kind
+    at every row index across the calls), lanes over the whole int32 range
+    with -1, -2, 0 and MAXL, ties on the first three lanes, or slots that
+    all agree on the first two."""
+    b, t, where = shape
+    for start in range(len(step_cases.LEX_ROWS)):
+        ts_np, deps_np = step_cases.lex_case(lanes, b, t, start, seed=start)
+        ts = _lex_on(ts_np, cuda, where)
+        deps = _lex_on(deps_np, cuda, where)
+        before = _kernels.LAUNCHES["lex_max_deps"]
+        got = _kernels.lex_max_deps(ts, deps)
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES["lex_max_deps"] == before + 1
+        want = _kernels.lex_max_deps_plain(ts, deps)
+        for a, c in zip(got, want):
+            assert a.dtype == c.dtype and torch.equal(a, c), (start, a, c)
 
 
 def _write_fields(fields, bt, deps, device):

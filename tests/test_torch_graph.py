@@ -18,9 +18,12 @@ from cassandra_accord_tpu.ops import frontier_kernels as ref_fk
 from cassandra_accord_tpu.ops import graph_state as ref_gs
 
 from cassandra_accord_tpu_torch import ops
+from cassandra_accord_tpu_torch.ops import _kernels
 from cassandra_accord_tpu_torch.ops import deps_kernels as dk
 from cassandra_accord_tpu_torch.ops import frontier_kernels as fk
 from cassandra_accord_tpu_torch.ops import graph_state as gs
+
+import step_cases
 
 MAXL = 0x7FFFFFFF
 
@@ -257,6 +260,82 @@ def test_max_conflict_ts_equals_reference(seed):
     want = _ref(ref_dk.max_conflict_ts, exec_at, deps)
     for a, c in zip(got, want):
         _assert_equal(a, c)
+
+
+def _single_pass(ts, deps):
+    """csrc/lex_max.cu's rule in numpy: from each row's count of set slots,
+    their plain lex max and their lane minima alone."""
+    b, t = deps.shape
+    out = np.zeros((b, gs.TS_LANES), np.int32)
+    for i in range(b):
+        rows = ts[deps[i]].astype(np.int64)
+        if not len(rows):
+            continue
+        top = max(map(tuple, rows.tolist()))
+        s = 0
+        if len(rows) == t:
+            low = rows.min(0)
+            s = next((l + 1 for l in range(gs.TS_LANES) if low[l] != top[l]),
+                     gs.TS_LANES)
+        gone = False
+        for lane in range(gs.TS_LANES):
+            gone = gone or (lane >= s and top[lane] < -1)
+            out[i, lane] = 0 if gone else max(top[lane], 0)
+    return out, deps.any(1)
+
+
+@pytest.mark.parametrize("lanes", step_cases.LEX_LANES)
+@pytest.mark.parametrize("t", [1, 7, 61])
+def test_lex_max_single_pass_rule_equals_reference(lanes, t):
+    """The one-pass rule the lex max kernel states (a count, the plain lex
+    max and the lane minima of the set slots) equals the reference's
+    five-lane chain and the port's plain version for any int32 lanes: the
+    -1 seeds of untied slots, negative lanes, MAXL, all-true rows whose
+    slots agree on the first lanes, all-false rows."""
+    for start in range(len(step_cases.LEX_ROWS)):
+        ts, deps = step_cases.lex_case(lanes, 10, t, start, seed=t + start)
+        want = _ref(ref_dk.max_conflict_ts, ts, deps)
+        for got in (_single_pass(ts, deps), _port(dk.max_conflict_ts, ts, deps)):
+            for a, c in zip(got, want):
+                _assert_equal(a, c)
+
+
+LEX_BAD = {
+    "ts_int64": (lambda ts, d: (ts.long(), d), TypeError),
+    "deps_uint8": (lambda ts, d: (ts, d.to(torch.uint8)), TypeError),
+    "four_lanes": (lambda ts, d: (ts[:, :4].contiguous(), d), ValueError),
+    "ts_one_slot_more": (lambda ts, d: (torch.cat([ts, ts[:1]]), d),
+                         ValueError),
+    "deps_one_row_1d": (lambda ts, d: (ts, d[0]), ValueError),
+    "deps_not_contiguous": (lambda ts, d: (ts, d.t().contiguous().t()),
+                            ValueError),
+    "ts_not_contiguous": (lambda ts, d: (ts.t().contiguous().t(), d),
+                          ValueError),
+    "meta_device": (lambda ts, d: (ts.to("meta"), d.to("meta")), ValueError),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LEX_BAD))
+def test_lex_max_deps_refuses_what_it_does_not_take(case):
+    """``_kernels.lex_max_deps`` checks its arguments on every device, the
+    CPU's plain path too: [B, T] bool deps, [T, 5] int32 lanes, both
+    contiguous, on the CPU or a CUDA card."""
+    ts, deps = (torch.from_numpy(a) for a in step_cases.lex_case("wide", 6, 6))
+    bad, err = LEX_BAD[case]
+    with pytest.raises(err):
+        _kernels.lex_max_deps(*bad(ts, deps))
+    got = _kernels.lex_max_deps(ts, deps)
+    want = _kernels.lex_max_deps_plain(ts, deps)
+    assert all(torch.equal(a, c) for a, c in zip(got, want))
+
+
+def test_lex_max_deps_empty_shapes_on_cpu():
+    """No rows, or rows over no slots: zero lanes and no dependency."""
+    for b, t in ((0, 5), (3, 0)):
+        got = _kernels.lex_max_deps(torch.zeros((t, 5), dtype=torch.int32),
+                                    torch.zeros((b, t), dtype=torch.bool))
+        assert got[0].shape == (b, 5) and not got[0].any()
+        assert got[1].shape == (b,) and not got[1].any()
 
 
 def test_bool_matvec_chunks_equal_one_product(monkeypatch):

@@ -295,7 +295,7 @@ def test_live_state_sharded_consult_equals_reference(ranks, ref_mesh,
 NO_LAUNCHES = [{"deps_join": 0, "max_conflict": 0, "deps_join_dense": 0,
                 "max_conflict_dense": 0, "deps_join_dense_tk": 0,
                 "max_conflict_dense_tk": 0, "fused_consult": 0,
-                "write_rows": 0, "frontier": 0}]
+                "write_rows": 0, "frontier": 0, "lex_max_deps": 0}]
 
 
 def test_rank_launches_are_reported(ranks):
